@@ -1,0 +1,499 @@
+"""Fused preprocess ladder on hand-written Hopper kernels — counterpart of
+`gmat_tpu/ops/pallas_kernels.py` (its host half, and kernels K1, K2, K3).
+
+    u8/u16 YUV planes -> row resample -> column resample -> 3x3 CSC ->
+    clip -> (x - shift) / norm -> (N, 3, out_h, out_w) f32, one launch
+
+Kernels (`gmat_tpu_torch/csrc/ladder.cu`, built at first use by `_build`):
+  * `ladder_i8`   replaces K1 `_ladder_kernel_i8` (int8 row stage) and
+    K3 `_ladder_kernel_i8_chunked`: the CUDA kernel walks any width, so
+    8K frames need no column-chunked variant.  The TPU's dispatch by VMEM
+    size (`_pick_w_chunks`, and its branch to the XLA path when no
+    lane-aligned chunking exists) has no counterpart here:
+    `fused_ladder_i8` sends every frame size to the kernel.
+  * `ladder_bf16` replaces K2 `_ladder_kernel` (bf16 row stage, u8 or
+    lsb-aligned u16 samples).
+
+Each kernel has a plain PyTorch version here (`_ladder_i8_plain`,
+`_ladder_bf16_plain`) that repeats its numerics with tensor ops on any
+device.  The wrappers take it only for CPU tensors, or when the caller
+passes `reference=True` (the counterpart of the JAX `interpret=True`); a
+CUDA tensor launches the kernel or raises.  `LAUNCHES` counts the kernel
+launches per kernel name.
+
+Crop, gaussian smooth and flip fold into the four resample matrices on
+the host (numpy, once per geometry), so the kernels never see them.
+"""
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from ..core.color import yuv2rgb_matrix, yuv_offsets
+from . import _build
+from .resize import f32_matmul, resample_matrix
+from .smooth import smooth_matrix
+
+LAUNCHES = {"ladder_i8": 0, "ladder_bf16": 0}
+
+_METHODS = ("bilinear", "nearest", "bicubic", "area", "lanczos3")
+
+
+# ------------------------------------------------ validators (from the JAX)
+
+def _validate_crop_box(crop_box, w, h):
+    """Normalize a (x, y, w, h) crop to ints and validate: positive even
+    dims inside the frame, non-negative origin (a negative origin would
+    silently wrap to the opposite edge via Python slicing)."""
+    cx, cy, cwb, chb = (int(c) for c in crop_box)
+    if cx < 0 or cy < 0 or cwb <= 0 or chb <= 0:
+        raise ValueError(f"crop box {crop_box} must have non-negative "
+                         "origin and positive size")
+    if (cx | cy | cwb | chb) & 1:
+        raise ValueError("4:2:0 crop box must be even")
+    if cx + cwb > w or cy + chb > h:
+        raise ValueError("crop box outside the frame")
+    return (cx, cy, cwb, chb)
+
+
+def _validate_smooth(smooth):
+    """Normalize a (kw, kh, sigmaX, sigmaY, border) gaussian spec for the
+    fused ladder.  Only sum-preserving borders fuse: a 'constant' border
+    scales the affine CSC offsets at the edges (G rows sum < 1), which
+    the pre-CSC matrix composition cannot express."""
+    kw_s, kh_s, sx, sy, border = smooth
+    kw_s, kh_s = int(kw_s), int(kh_s)
+    if kw_s < 1 or kh_s < 1 or not (kw_s & 1) or not (kh_s & 1):
+        raise ValueError(f"gaussian kernel sizes must be odd and >=1, "
+                         f"got {kw_s}x{kh_s}")
+    if border == "constant":
+        raise ValueError("constant-border smooth cannot fuse into the "
+                         "ladder matrices (edge rows break the CSC "
+                         "offsets); use the separate smooth op")
+    return (kw_s, kh_s, float(sx), float(sy), str(border))
+
+
+def _validate_flip(flip):
+    if flip is not None and flip not in (0, 1, -1):
+        raise ValueError(f"flip must be 0 (vertical), 1 (horizontal) or "
+                         f"-1 (both), got {flip!r}")
+    return flip
+
+
+def _validate(w, h, crop_box, smooth, flip):
+    if crop_box is not None:
+        crop_box = _validate_crop_box(crop_box, w, h)
+    flip = _validate_flip(flip)
+    if smooth is not None:
+        smooth = _validate_smooth(smooth)
+    return crop_box, smooth, flip
+
+
+# ---------------------------------------- resample matrices (numpy, host)
+
+def _apply_post(ahy, ahc, awy, awc, out_h, out_w, smooth, flip):
+    """Fold output-resolution gaussian smoothing and flip into the four
+    resample matrices: out = Flip(G_h @ (A_h X A_w^T) @ G_w^T) collapses
+    to a one-time numpy precomposition.
+
+    ahy/ahc are (out_h, in) row matrices; awy/awc are the TRANSPOSED
+    (in, out_w) column matrices the kernels consume.
+    """
+    if smooth is not None:
+        kw_s, kh_s, sx, sy, border = smooth
+        if kh_s > 1:
+            gh = smooth_matrix(out_h, kh_s, sy, border)
+            ahy = gh @ ahy
+            ahc = gh @ ahc
+        if kw_s > 1:
+            gw = smooth_matrix(out_w, kw_s, sx, border)
+            awy = awy @ gw.T
+            awc = awc @ gw.T
+    if flip in (0, -1):      # vertical: reverse output rows
+        ahy = ahy[::-1]
+        ahc = ahc[::-1]
+    if flip in (1, -1):      # horizontal: reverse output columns
+        awy = awy[:, ::-1]
+        awc = awc[:, ::-1]
+    return (np.ascontiguousarray(ahy, np.float32),
+            np.ascontiguousarray(ahc, np.float32),
+            np.ascontiguousarray(awy, np.float32),
+            np.ascontiguousarray(awc, np.float32))
+
+
+def _cropped_matrix(n_in_full: int, crop_off: int, crop_len: int,
+                    n_out: int, method: str) -> np.ndarray:
+    """Resample matrix that reads only [crop_off, crop_off+crop_len) of a
+    full-length axis — crop fused into the interpolation weights."""
+    A = resample_matrix(crop_len, n_out, method)
+    if crop_off == 0 and crop_len == n_in_full:
+        return A
+    full = np.zeros((n_out, n_in_full), np.float32)
+    full[:, crop_off:crop_off + crop_len] = A
+    return full
+
+
+def _quant_rows(A):
+    """Quantize a resample matrix to int8 with a per-matrix scale so
+    methods with taps beyond +-1 (bicubic overshoot, lanczos lobes) stay
+    exact-ish: q = round(A*s), s = 127/max(1, max|A|)."""
+    s = 127.0 / max(1.0, float(np.abs(A).max()))
+    q = np.clip(np.round(A * s), -127, 127).astype(np.int8)
+    return q, s
+
+
+def _i8_quant_error_lsb(A) -> float:
+    """Worst-case u8-LSB error of int8 weight quantization for one row of
+    the resample matrix (drives the i8-vs-bf16 kernel dispatch)."""
+    q, s = _quant_rows(A)
+    return float(np.abs(q.astype(np.float32) / s - A).sum(axis=1).max()) * 255.0
+
+
+@lru_cache(maxsize=256)
+def _i8_ok_composed(h, w, ch, cw, out_h, out_w, method, crop, smooth,
+                    flip) -> bool:
+    """Dispatch gate on the ACTUAL (crop/smooth/flip-composed) row
+    matrices the int8 kernel would quantize.  A fused gaussian spreads
+    row weights, so the bilinear shortcut only holds without smooth."""
+    if method in ("bilinear", "nearest") and smooth is None:
+        return True
+    ahy, ahc, _, _ = _i8_matrices(h, w, ch, cw, out_h, out_w, method,
+                                  crop, smooth, flip)
+    return max(_i8_quant_error_lsb(ahy), _i8_quant_error_lsb(ahc)) <= 2.0
+
+
+@lru_cache(maxsize=64)
+def _i8_matrices(h, w, ch, cw, out_h, out_w, method, crop, smooth, flip):
+    """The four (possibly crop/smooth/flip-composed) resample matrices of
+    one ladder geometry — the same for both kernels, as in the JAX
+    builders."""
+    if crop:
+        cx, cy, cw_box, ch_box = crop
+        # chroma window scales per axis from the actual plane shapes
+        ahy = _cropped_matrix(h, cy, ch_box, out_h, method)
+        ahc = _cropped_matrix(ch, cy * ch // h, ch_box * ch // h,
+                              out_h, method)
+        awy = _cropped_matrix(w, cx, cw_box, out_w, method).T
+        awc = _cropped_matrix(cw, cx * cw // w, cw_box * cw // w,
+                              out_w, method).T
+    else:
+        ahy = resample_matrix(h, out_h, method)
+        ahc = resample_matrix(ch, out_h, method)
+        awy = resample_matrix(w, out_w, method).T
+        awc = resample_matrix(cw, out_w, method).T
+    if smooth is not None or flip is not None:
+        ahy, ahc, awy, awc = _apply_post(ahy, ahc, awy, awc, out_h, out_w,
+                                         smooth, flip)
+    return ahy, ahc, awy, awc
+
+
+def _bf16_values(a: np.ndarray) -> np.ndarray:
+    """f32 array rounded to bf16 (round to nearest even), kept as f32."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return t.to(torch.bfloat16).to(torch.float32).numpy()
+
+
+@lru_cache(maxsize=64)
+def _ladder_matrices(kind: str, geom: tuple) -> dict:
+    """The operands kernel `kind` ("i8" or "bf16") reads for one geometry
+    (h, w, ch, cw, out_h, out_w, method, crop, smooth, flip), as numpy.
+
+    i8: int8 row matrices with their scales and the row offsets
+    128 * rowsum(Ah_q) / s that undo the x ^ 0x80 centring; bf16: row
+    matrices rounded to bf16.  Column matrices are bf16 for both."""
+    ahy, ahc, awy, awc = _i8_matrices(*geom)
+    ops = {"awy": _bf16_values(awy), "awc": _bf16_values(awc)}
+    if kind == "bf16":
+        ops.update(ahy=_bf16_values(ahy), ahc=_bf16_values(ahc))
+        return ops
+    ahy_q, sy = _quant_rows(ahy)
+    ahc_q, sc = _quant_rows(ahc)
+    ops.update(ahy=ahy_q, ahc=ahc_q,
+               offy=128.0 * ahy_q.astype(np.float32).sum(1) / sy,
+               offc=128.0 * ahc_q.astype(np.float32).sum(1) / sc,
+               inv_sy=float(np.float32(1.0 / sy)),
+               inv_sc=float(np.float32(1.0 / sc)))
+    return ops
+
+
+def _epilogue(colorspace: str, bits: int, norm: float, shift) -> dict:
+    """CSC/normalize constants, as the f32 values the TPU kernels use."""
+    low, mid = yuv_offsets(bits)
+    return {"mat": yuv2rgb_matrix(colorspace), "low": float(low),
+            "mid": float(mid), "maxv": 2.0 * mid - 1.0,
+            "shift": tuple(float(np.float32(s)) for s in shift),
+            "inv_norm": float(np.float32(1.0 / float(norm)))}
+
+
+# ------------------------------------------------------- plain versions
+
+@lru_cache(maxsize=32)
+def _plain_operands(kind: str, geom: tuple, device: str) -> dict:
+    dev = torch.device(device)
+    return {k: torch.as_tensor(v, device=dev) if isinstance(v, np.ndarray)
+            else v for k, v in _ladder_matrices(kind, geom).items()}
+
+
+def _csc(yy, uu, vv, c) -> torch.Tensor:
+    """3x3 matrix, clip, (x - shift) * (1/norm), on offset-free planes."""
+    m = c["mat"]
+    chans = []
+    for k in range(3):
+        s = (float(m[k, 0]) * yy + float(m[k, 1]) * uu) + float(m[k, 2]) * vv
+        s = torch.clamp(s, 0.0, c["maxv"])
+        chans.append((s - c["shift"][k]) * c["inv_norm"])
+    return torch.stack(chans, dim=1)
+
+
+def _rowcol_i8_plain(x, ah_q, aw, off, inv_s):
+    # x ^ 0x80 read as int8 is exactly x - 128; the row products are
+    # summed in float64, exact because every partial sum is an integer
+    # far below 2**53 (int32 in the kernel)
+    x8 = x.to(torch.float64) - 128.0
+    t = torch.matmul(ah_q.to(torch.float64), x8)
+    tb = (t.to(torch.float32) * inv_s).to(torch.bfloat16).to(torch.float32)
+    return f32_matmul(tb, aw) + off[:, None]
+
+
+def _ladder_i8_plain(y, u, v, ops: dict, c: dict) -> torch.Tensor:
+    """Plain PyTorch version of the `ladder_i8` kernel (K1/K3)."""
+    yy = _rowcol_i8_plain(y, ops["ahy"], ops["awy"], ops["offy"],
+                          ops["inv_sy"]) - c["low"]
+    uu = _rowcol_i8_plain(u, ops["ahc"], ops["awc"], ops["offc"],
+                          ops["inv_sc"]) - c["mid"]
+    vv = _rowcol_i8_plain(v, ops["ahc"], ops["awc"], ops["offc"],
+                          ops["inv_sc"]) - c["mid"]
+    return _csc(yy, uu, vv, c)
+
+
+def _rowcol_bf16_plain(x, ah, aw):
+    # samples round to bf16 first (a 10-bit value above 256 is not exact
+    # in bf16); the row stage sums in f32 over the TPU kernel's 512-row
+    # chunks and rounds to bf16 before the column stage
+    xb = x.to(torch.float32).to(torch.bfloat16).to(torch.float32)
+    h = x.shape[-2]
+    k_chunks = max(1, h // 512)
+    chunk = h // k_chunks
+    bounds = [(c * chunk, (c + 1) * chunk) for c in range(k_chunks)]
+    if h > k_chunks * chunk:
+        bounds.append((k_chunks * chunk, h))
+    acc = None
+    for lo, hi in bounds:
+        part = f32_matmul(ah[:, lo:hi], xb[:, lo:hi])
+        acc = part if acc is None else acc + part
+    tb = acc.to(torch.bfloat16).to(torch.float32)
+    return f32_matmul(tb, aw)
+
+
+def _ladder_bf16_plain(y, u, v, ops: dict, c: dict) -> torch.Tensor:
+    """Plain PyTorch version of the `ladder_bf16` kernel (K2)."""
+    yy = _rowcol_bf16_plain(y, ops["ahy"], ops["awy"]) - c["low"]
+    uu = _rowcol_bf16_plain(u, ops["ahc"], ops["awc"]) - c["mid"]
+    vv = _rowcol_bf16_plain(v, ops["ahc"], ops["awc"]) - c["mid"]
+    return _csc(yy, uu, vv, c)
+
+
+_PLAIN = {"i8": _ladder_i8_plain, "bf16": _ladder_bf16_plain}
+
+
+# ------------------------------------------------------- kernel launches
+
+def _band(A: np.ndarray):
+    """Band form of a (count, n_in) matrix: for each row the first column
+    with a nonzero entry, the window length up to the last one, and the
+    windows packed left-aligned into (count, longest).  Every nonzero lies
+    inside its window, so a kernel that sums over the windows skips only
+    zeros (exact)."""
+    nz = A != 0
+    has = nz.any(axis=1)
+    lo = np.where(has, nz.argmax(axis=1), 0)
+    hi = np.where(has, A.shape[1] - nz[:, ::-1].argmax(axis=1), 0)
+    n = hi - lo
+    packed = np.zeros((A.shape[0], max(1, int(n.max()))), A.dtype)
+    for r in range(A.shape[0]):
+        packed[r, :n[r]] = A[r, lo[r]:hi[r]]
+    return lo.astype(np.int32), n.astype(np.int32), packed
+
+
+@lru_cache(maxsize=32)
+def _kernel_operands(kind: str, geom: tuple, device: str) -> dict:
+    """Band-form operands, uploaded once per (geometry, device)."""
+    m = _ladder_matrices(kind, geom)
+    dev = torch.device(device)
+    row_dtype = torch.int8 if kind == "i8" else torch.bfloat16
+    ops = {}
+    for name, mat, dtype in (("row_y", m["ahy"], row_dtype),
+                             ("col_y", m["awy"].T, torch.bfloat16),
+                             ("row_c", m["ahc"], row_dtype),
+                             ("col_c", m["awc"].T, torch.bfloat16)):
+        lo, n, packed = _band(np.ascontiguousarray(mat))
+        ops[name] = (torch.as_tensor(lo, device=dev),
+                     torch.as_tensor(n, device=dev),
+                     torch.as_tensor(packed, device=dev).to(dtype))
+    if kind == "i8":
+        ops.update(off_y=torch.as_tensor(m["offy"], device=dev),
+                   off_c=torch.as_tensor(m["offc"], device=dev),
+                   inv_sy=m["inv_sy"], inv_sc=m["inv_sc"])
+    return ops
+
+
+class _Band(ctypes.Structure):
+    _fields_ = [("lo", ctypes.c_void_p), ("len", ctypes.c_void_p),
+                ("wts", ctypes.c_void_p), ("stride", ctypes.c_int32)]
+
+
+class _LadderArgs(ctypes.Structure):
+    """Mirror of `struct LadderArgs` in csrc/ladder.cu."""
+    _fields_ = ([(k, ctypes.c_void_p) for k in ("y", "u", "v", "out")]
+                + [(k, _Band) for k in ("row_y", "col_y", "row_c", "col_c")]
+                + [(k, ctypes.c_void_p) for k in ("off_y", "off_c")]
+                + [(k, ctypes.c_int32) for k in ("n", "h", "w", "ch", "cw",
+                                                  "out_h", "out_w")]
+                + [("inv_sy", ctypes.c_float), ("inv_sc", ctypes.c_float),
+                   ("mat", ctypes.c_float * 9)]
+                + [(k, ctypes.c_float) for k in ("low", "mid", "maxv",
+                                                  "inv_norm")]
+                + [("shift", ctypes.c_float * 3)])
+
+
+def _ladder_args(y, u, v, out, ops: dict, c: dict) -> _LadderArgs:
+    """Kernel arguments: pointers of the planes, output and band
+    operands, shapes and the epilogue constants."""
+    def band(name):
+        lo, n, packed = ops[name]
+        return _Band(lo.data_ptr(), n.data_ptr(), packed.data_ptr(),
+                     packed.shape[1])
+
+    off = ("off_y", "off_c")
+    return _LadderArgs(
+        y.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
+        band("row_y"), band("col_y"), band("row_c"), band("col_c"),
+        *(ops[k].data_ptr() if k in ops else None for k in off),
+        y.shape[0], y.shape[1], y.shape[2], u.shape[1], u.shape[2],
+        out.shape[2], out.shape[3],
+        ops.get("inv_sy", 1.0), ops.get("inv_sc", 1.0),
+        (ctypes.c_float * 9)(*c["mat"].reshape(-1).tolist()),
+        c["low"], c["mid"], c["maxv"], c["inv_norm"],
+        (ctypes.c_float * 3)(*c["shift"]))
+
+
+_ENTRIES = {("i8", torch.uint8): ("ladder_i8", "gmat_ladder_i8"),
+            ("bf16", torch.uint8): ("ladder_bf16", "gmat_ladder_bf16_u8"),
+            ("bf16", torch.uint16): ("ladder_bf16", "gmat_ladder_bf16_u16")}
+
+
+def _launch(kind: str, y, u, v, geom: tuple, c: dict) -> torch.Tensor:
+    """Launch kernel `kind` on CUDA planes; raises on what it does not take."""
+    if y.device.type != "cuda":
+        raise ValueError(f"the {kind} ladder kernel takes CUDA tensors, got "
+                         f"{y.device}")
+    if (kind, y.dtype) not in _ENTRIES:
+        raise TypeError(f"the {kind} ladder kernel takes no {y.dtype} planes")
+    name, entry = _ENTRIES[(kind, y.dtype)]
+    for t in (u, v):
+        if t.device != y.device or t.dtype != y.dtype:
+            raise ValueError("y, u and v must share one device and dtype")
+    if y.dim() != 3 or u.dim() != 3 or u.shape != v.shape \
+            or u.shape[0] != y.shape[0]:
+        raise ValueError(f"planes must be (N,H,W) with equal chroma shapes, "
+                         f"got {tuple(y.shape)}, {tuple(u.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not (y.is_contiguous() and u.is_contiguous() and v.is_contiguous()):
+        raise ValueError("the ladder kernels take contiguous planes")
+    if not 0 < y.shape[0] <= 65535:
+        raise ValueError(f"batch {y.shape[0]} outside 1..65535")
+    out_h, out_w = geom[4], geom[5]
+    lib = _build.library()
+    if lib.gmat_ladder_args_size() != ctypes.sizeof(_LadderArgs):
+        raise RuntimeError("_LadderArgs does not match LadderArgs in "
+                           "csrc/ladder.cu")
+    ops = _kernel_operands(kind, geom, str(y.device))
+    out = torch.empty((y.shape[0], 3, out_h, out_w), dtype=torch.float32,
+                      device=y.device)
+    args = _ladder_args(y, u, v, out, ops, c)
+    with torch.cuda.device(y.device):
+        err = getattr(lib, entry)(ctypes.byref(args),
+                                  torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: {_build.error_string(err)}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def _run(kind: str, y, u, v, geom: tuple, c: dict, reference: bool):
+    if reference or y.device.type == "cpu":
+        ops = _plain_operands(kind, geom, str(y.device))
+        return _PLAIN[kind](y, u, v, ops, c)
+    return _launch(kind, y, u, v, geom, c)
+
+
+# ------------------------------------------------------------ public API
+
+def fused_ladder(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                 out_h: int, out_w: int, colorspace: str = "bt709",
+                 method: str = "bilinear", norm: float = 255.0,
+                 shift=(0.0, 0.0, 0.0), reference: bool = False,
+                 crop_box=None, smooth=None, flip=None) -> torch.Tensor:
+    """Batched YUV planes -> (N, 3, out_h, out_w) f32 on the bf16 kernel.
+
+    y: (N, H, W) uint8; u, v: (N, H/2, W/2) or (N, H, W) uint8.
+    crop_box=(x, y, w, h): fused crop (even coords);
+    smooth=(kw, kh, sigmaX, sigmaY, border) and flip in {0, 1, -1} fold
+    into the matrices (sum-preserving borders only).
+    """
+    n, h, w = y.shape
+    ch, cw = u.shape[1], u.shape[2]
+    crop_box, smooth, flip = _validate(w, h, crop_box, smooth, flip)
+    geom = (h, w, ch, cw, out_h, out_w, method, crop_box, smooth, flip)
+    return _run("bf16", y, u, v, geom, _epilogue(colorspace, 8, norm, shift),
+                reference)
+
+
+def fused_ladder_u16(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                     out_h: int, out_w: int, bits: int = 10,
+                     colorspace: str = "bt709", method: str = "bilinear",
+                     norm: float = 0.0, shift=(0.0, 0.0, 0.0),
+                     reference: bool = False, crop_box=None,
+                     smooth=None, flip=None) -> torch.Tensor:
+    """High-bit-depth ladder on the bf16 kernel: u16 planes holding
+    lsb-aligned `bits`-bit samples.  norm=0 defaults to full scale
+    ((1<<bits)-1) so the output lands in [0,1] like the 8-bit path's
+    norm=255."""
+    n, h, w = y.shape
+    ch, cw = u.shape[1], u.shape[2]
+    if not norm:
+        norm = float((1 << bits) - 1)
+    crop_box, smooth, flip = _validate(w, h, crop_box, smooth, flip)
+    geom = (h, w, ch, cw, out_h, out_w, method, crop_box, smooth, flip)
+    return _run("bf16", y, u, v, geom,
+                _epilogue(colorspace, int(bits), norm, shift), reference)
+
+
+def fused_ladder_i8(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                    out_h: int, out_w: int, colorspace: str = "bt709",
+                    method: str = "bilinear", norm: float = 255.0,
+                    shift=(0.0, 0.0, 0.0), reference: bool = False,
+                    crop_box=None, smooth=None, flip=None) -> torch.Tensor:
+    """int8-row-stage ladder (weights quantized to 1/s steps, <=1 u8-LSB
+    vs the bf16 kernel), for any frame size.
+
+    The quantization gate judges the matrices actually quantized (crop
+    windows, fused gaussians and flips included): where int8 cannot hold
+    them, the bf16 kernel carries the call instead, fusions and all.
+    """
+    if method not in _METHODS:
+        raise ValueError(f"int8 ladder: unknown method {method!r}")
+    n, h, w = y.shape
+    ch, cw = u.shape[1], u.shape[2]
+    crop_box, smooth, flip = _validate(w, h, crop_box, smooth, flip)
+    if not _i8_ok_composed(h, w, ch, cw, out_h, out_w, method, crop_box,
+                           smooth, flip):
+        return fused_ladder(y, u, v, out_h, out_w, colorspace, method, norm,
+                            shift, reference, crop_box=crop_box,
+                            smooth=smooth, flip=flip)
+    geom = (h, w, ch, cw, out_h, out_w, method, crop_box, smooth, flip)
+    return _run("i8", y, u, v, geom, _epilogue(colorspace, 8, norm, shift),
+                reference)

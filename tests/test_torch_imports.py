@@ -1,0 +1,109 @@
+"""The PyTorch port stands alone: no jax, no gmat_tpu, no silent CPU
+fallback, no nvcc at import time."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from gmat_tpu_torch import FrameBatch
+from gmat_tpu_torch.core.frame import from_numpy_rgb, from_numpy_yuv420
+from gmat_tpu_torch.ops import _build, ladder
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "gmat_tpu_torch"
+
+
+def test_import_pulls_in_no_jax():
+    # a subprocess: this test process already imported jax (conftest.py)
+    code = (
+        "import sys\n"
+        "import gmat_tpu_torch, gmat_tpu_torch.ops.fused, "
+        "gmat_tpu_torch.ops.ladder\n"
+        "bad = [m for m in sys.modules if m.startswith('jax') "
+        "or m == 'gmat_tpu' or m.startswith('gmat_tpu.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax\w*|gmat_tpu)(?:\.|\s|$)", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
+                         [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_jax(path):
+    assert not _FORBIDDEN.findall(path.read_text()), path
+
+
+def _yuv(n=1, h=8, w=8):
+    return (np.zeros((n, h, w), np.uint8), np.zeros((n, h // 2, w // 2),
+            np.uint8), np.zeros((n, h // 2, w // 2), np.uint8))
+
+
+@pytest.mark.parametrize("make", [
+    lambda: from_numpy_yuv420(*_yuv()),
+    lambda: from_numpy_rgb(np.zeros((1, 8, 8, 3), np.uint8)),
+    lambda: FrameBatch.from_numpy(dict(zip("yuv", _yuv())), "yuv420p", 8, 8),
+], ids=["from_numpy_yuv420", "from_numpy_rgb", "FrameBatch.from_numpy"])
+def test_entry_points_default_to_cuda(make):
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+
+
+def test_kernel_wrappers_take_no_other_device():
+    # a tensor that is neither on the CPU nor on CUDA must not reach a
+    # plain version: the kernel path refuses it
+    y, u, v = (torch.as_tensor(a).to("meta") for a in _yuv(1, 16, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        ladder.fused_ladder_i8(y, u, v, 8, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ladder.fused_ladder(y, u, v, 8, 8)
+
+
+def test_find_nvcc(tmp_path, monkeypatch):
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text("#!/bin/sh\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    assert _build.find_nvcc() == str(fake)
+    monkeypatch.delenv("CUDA_HOME")
+    monkeypatch.setattr(_build.os, "access", lambda path, mode: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+
+
+def test_build_key_covers_sources_and_flags():
+    assert [p.name for p in _build.SOURCES] == ["ladder.cu"]
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert re.fullmatch(r"[0-9a-f]{16}", _build._digest())
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])
+def test_chip_smoke_refuses_without_a_card(tmp_path, alone):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py would run")
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        (tmp_path / "chip_smoke.py").write_bytes(script.read_bytes())
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    else:
+        cwd = ROOT
+    proc = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
