@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-`library()` compiles `gmat_tpu_torch/csrc/*.cu` with nvcc into one shared
-library with a plain C interface, under `gmat_tpu_torch/build/` (listed in
-.gitignore), keyed by a hash of the sources and flags, and loads it.  Only
+`library()` compiles `gmat_tpu_torch/csrc/*.cu` with nvcc (one process per
+source, all started together) and links them into one shared library with
+a plain C interface, under `gmat_tpu_torch/build/` (listed in .gitignore),
+keyed by a hash of the sources and flags, and loads it.  Only
 a call that needs a kernel gets here: importing the package never needs
 nvcc.  nvcc is looked up on PATH, then in $CUDA_HOME/bin, then in
 /usr/local/cuda/bin; if it is in none of them, the build raises.
@@ -22,7 +23,11 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# entry points of the library: launchers take (args struct, stream)
+_LAUNCHERS = ("gmat_ladder_i8", "gmat_ladder_bf16_u8", "gmat_ladder_bf16_u16",
+              "gmat_rungs_i8", "gmat_rungs_bf16")
+_SIZES = ("gmat_ladder_args_size", "gmat_rungs_args_size")
 
 # what the last build in this process did: seconds, library path, ptxas log
 BUILD_INFO: dict = {}
@@ -50,19 +55,36 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list) -> str:
+    """Run the commands side by side and return their output once all have
+    ended; raise if any failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+    for cmd, out, rc in outs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+    return "".join(out for _cmd, out, _rc in outs)
+
+
 def _compile(so: Path) -> None:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    tag = f"{os.getpid()}.tmp"
+    objs = [so.with_name(f"{so.stem}.{src.stem}.{tag}.o") for src in SOURCES]
+    tmp = so.with_name(f"{so.name}.{tag}")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                      ptxas=(proc.stdout + proc.stderr).strip())
+    try:
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(SOURCES, objs)])
+        log += _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                      *map(str, objs)]])
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, ptxas=log.strip())
 
 
 def library() -> ctypes.CDLL:
@@ -74,13 +96,13 @@ def library() -> ctypes.CDLL:
             if not so.exists():
                 _compile(so)
             lib = ctypes.CDLL(str(so))
-            for name in ("gmat_ladder_i8", "gmat_ladder_bf16_u8",
-                         "gmat_ladder_bf16_u16"):
+            for name in _LAUNCHERS:
                 fn = getattr(lib, name)
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
-            lib.gmat_ladder_args_size.argtypes = []
-            lib.gmat_ladder_args_size.restype = ctypes.c_size_t
+            for name in _SIZES:
+                getattr(lib, name).argtypes = []
+                getattr(lib, name).restype = ctypes.c_size_t
             lib.gmat_cuda_error_string.argtypes = [ctypes.c_int]
             lib.gmat_cuda_error_string.restype = ctypes.c_char_p
             BUILD_INFO["library"] = str(so)

@@ -204,7 +204,14 @@ def _ladder_matrices(kind: str, geom: tuple) -> dict:
     i8: int8 row matrices with their scales and the row offsets
     128 * rowsum(Ah_q) / s that undo the x ^ 0x80 centring; bf16: row
     matrices rounded to bf16.  Column matrices are bf16 for both."""
-    ahy, ahc, awy, awc = _i8_matrices(*geom)
+    return _row_col_operands(kind, *_i8_matrices(*geom))
+
+
+def _row_col_operands(kind: str, ahy, ahc, awy, awc) -> dict:
+    """The operands of one luma and one chroma resample, as numpy: bf16
+    column matrices (transposed, (in, out)); bf16 row matrices, or int8
+    row matrices with f32(1/s) and the row offsets 128 * rowsum(Ah_q) / s
+    (computed as the JAX builders compute them)."""
     ops = {"awy": _bf16_values(awy), "awc": _bf16_values(awc)}
     if kind == "bf16":
         ops.update(ahy=_bf16_values(ahy), ahc=_bf16_values(ahc))
@@ -230,11 +237,16 @@ def _epilogue(colorspace: str, bits: int, norm: float, shift) -> dict:
 
 # ------------------------------------------------------- plain versions
 
-@lru_cache(maxsize=32)
-def _plain_operands(kind: str, geom: tuple, device: str) -> dict:
+def _tensors(ops: dict, device: str) -> dict:
+    """numpy operands as tensors on `device`; scalars stay as they are."""
     dev = torch.device(device)
     return {k: torch.as_tensor(v, device=dev) if isinstance(v, np.ndarray)
-            else v for k, v in _ladder_matrices(kind, geom).items()}
+            else v for k, v in ops.items()}
+
+
+@lru_cache(maxsize=32)
+def _plain_operands(kind: str, geom: tuple, device: str) -> dict:
+    return _tensors(_ladder_matrices(kind, geom), device)
 
 
 def _csc(yy, uu, vv, c) -> torch.Tensor:
@@ -321,7 +333,12 @@ def _band(A: np.ndarray):
 @lru_cache(maxsize=32)
 def _kernel_operands(kind: str, geom: tuple, device: str) -> dict:
     """Band-form operands, uploaded once per (geometry, device)."""
-    m = _ladder_matrices(kind, geom)
+    return _band_operands(kind, _ladder_matrices(kind, geom), device)
+
+
+def _band_operands(kind: str, m: dict, device: str) -> dict:
+    """The operands of `_row_col_operands` as the kernels read them: each
+    matrix in band form (int8 or bf16 weights), offsets and scales."""
     dev = torch.device(device)
     row_dtype = torch.int8 if kind == "i8" else torch.bfloat16
     ops = {}

@@ -12,7 +12,7 @@ import torch
 
 from gmat_tpu_torch import FrameBatch
 from gmat_tpu_torch.core.frame import from_numpy_rgb, from_numpy_yuv420
-from gmat_tpu_torch.ops import _build, ladder
+from gmat_tpu_torch.ops import _build, ladder, rungs
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "gmat_tpu_torch"
@@ -23,7 +23,11 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys\n"
         "import gmat_tpu_torch, gmat_tpu_torch.ops.fused, "
-        "gmat_tpu_torch.ops.ladder\n"
+        "gmat_tpu_torch.ops.ladder, gmat_tpu_torch.ops.rungs, "
+        "gmat_tpu_torch.av.ingest, gmat_tpu_torch.av.rawvideo, "
+        "gmat_tpu_torch.av.toolkit, gmat_tpu_torch.av.native, "
+        "gmat_tpu_torch.utils.encparam, gmat_tpu_torch.utils.stopwatch, "
+        "gmat_tpu_torch.apps.metrans\n"
         "bad = [m for m in sys.modules if m.startswith('jax') "
         "or m == 'gmat_tpu' or m.startswith('gmat_tpu.')]\n"
         "print(bad)\n"
@@ -71,6 +75,8 @@ def test_kernel_wrappers_take_no_other_device():
         ladder.fused_ladder_i8(y, u, v, 8, 8)
     with pytest.raises(ValueError, match="CUDA"):
         ladder.fused_ladder(y, u, v, 8, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        rungs.fused_rungs(y, u, v, [(8, 8)])
 
 
 def test_find_nvcc(tmp_path, monkeypatch):
@@ -88,7 +94,7 @@ def test_find_nvcc(tmp_path, monkeypatch):
 
 
 def test_build_key_covers_sources_and_flags():
-    assert [p.name for p in _build.SOURCES] == ["ladder.cu"]
+    assert [p.name for p in _build.SOURCES] == ["ladder.cu", "rungs.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert re.fullmatch(r"[0-9a-f]{16}", _build._digest())
 
