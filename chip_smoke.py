@@ -4,17 +4,22 @@
     python3 chip_smoke.py          # from the repo root; needs one CUDA device
 
 Builds the kernels (gmat_tpu_torch/csrc/ladder.cu and rungs.cu) with
-nvcc, runs the port's two main paths at full size -- `preprocess_nchw` on a
-64 x 1080p yuv420p batch -> (64, 3, 224, 224) f32, and the ABR ladder: a
-96-frame 1080p Y4M file -> `decode_stream` -> `metrans.ladder_step` ->
-rung planes on the host -- and holds every kernel against its plain
-PyTorch version on the card:
+nvcc, runs the port's main paths at full size -- `preprocess_nchw` on a
+64 x 1080p yuv420p batch -> (64, 3, 224, 224) f32; the wire-format lane,
+the same batch as NV12 and a 10-bit one as P010 -> the same output; and
+the ABR ladder: a 96-frame 1080p Y4M file -> `decode_stream` ->
+`metrans.ladder_step` -> rung planes on the host, whose batches are also
+scene-scored -- and holds every kernel against its plain PyTorch version
+on the card:
 
   device           card name, compute capability, power limit, kernel build
   main_path        K1 (ladder_i8) through preprocess_nchw, quality gate vs
                    the exact path, a crop + smooth + flip case
   ladder_bf16      K2 (ladder_bf16): use_kernel="bf16", yuv420p10, yuv444p
   ladder_wide      K3 (ladder_i8 at 8K) and a 5760x3240 frame
+  wire_lane        K6 (ladder_nv12), K7 (ladder_nv12_i8), K8 (ladder_p010)
+                   through the wire-format entry points, each against its
+                   plain version and its planar twin; K7 on 8 x 8K NV12
   abr_ladder       K4 through the ABR path on the 1080p ladder 720p/540p/360p,
                    where the int8 tap gate picks the bf16 rows (rungs_bf16);
                    rung files written and read back as Y4M
@@ -22,7 +27,12 @@ PyTorch version on the card:
   rungs_bf16       bf16 rows forced on the first batch, both ladders
   rungs_i8_forced  int8 rows forced on the 720p/540p/360p ladder
   rungs_wide       K5 (rungs_i8 at 8 x 4K) and a nearest-neighbour ladder
+  scene            scene_scores on the ABR source's batches on the card,
+                   last frame and mafd carried across batches, against the
+                   same calls on CPU copies; ms per 32 x 1080p batch
   metrans_session  run_session with libx264 rungs, where libavcodec exists
+  smart_decode     FrameExtractor, FrameSelect and extract_to_torch on a
+                   small libx264 clip, where libavcodec exists
   timing           CUDA-event medians: kernel, plain version, library call,
                    separate-op path
 
@@ -67,7 +77,14 @@ LADDER_4K = ((1920, 1080), (1280, 720), (960, 540))
 # resize 3 for int8 rows and 1 for bf16 (test_pallas.py:268-294)
 LSB_RUNG_PLAIN = 1
 LSB_RUNG_EXACT = {"i8": 3, "bf16": 1}
+# wire kernels against their planar twins: the JAX package's bounds
+# (test_pallas.py:91-101, 206-220, 308-326)
+LSB_TWIN = 1.0
+# scene scores on the card against the CPU: f32 sums in another order
+SCENE_RTOL = 1e-5
 AV_LIBS = ("avformat", "avcodec", "avutil", "swscale", "swresample")
+# smart decode clip: test_extractor.py's, 60 frames with a cut at 30
+SMART_SIZE, SMART_FRAMES, SMART_CUT = (320, 240), 60, 30
 
 
 def emit(phase: str, **fields) -> None:
@@ -87,6 +104,11 @@ def lsb(a: torch.Tensor, b: torch.Tensor) -> float:
 def zero_counts(ladder) -> None:
     for k in ladder.LAUNCHES:
         ladder.LAUNCHES[k] = 0
+
+
+def want_counts(module, **launched) -> dict:
+    """Every counter of `module.LAUNCHES` at 0 but those named."""
+    return {k: launched.get(k, 0) for k in module.LAUNCHES}
 
 
 class Planes:
@@ -135,21 +157,60 @@ def event_ms(fn, calls: int = 10, reps: int = 7):
     return statistics.median(times), times, statistics.median(host)
 
 
-def raw_launcher(ladder, kind, y, u, v, geom, c):
-    """Launch the kernel from prebuilt arguments (no per-call host work),
-    so that event time is device time.  Not counted in LAUNCHES."""
+def launcher(entry: str, args, result, label: str):
+    """Launch a kernel's C entry from prebuilt arguments (no per-call host
+    work), so that event time is device time.  Not counted in LAUNCHES."""
     from gmat_tpu_torch.ops import _build
-    ops = ladder._kernel_operands(kind, geom, str(y.device))
-    out = torch.empty((y.shape[0], 3, geom[4], geom[5]), device=y.device)
-    args = ladder._ladder_args(y, u, v, out, ops, c)
-    entry = getattr(_build.library(), ladder._ENTRIES[(kind, y.dtype)][1])
+    fn = getattr(_build.library(), entry)
     stream = torch.cuda.current_stream().cuda_stream
 
     def go():
-        err = entry(ctypes.byref(args), stream)
-        check(err == 0, f"{kind} launch: {_build.error_string(err)}")
-        return out
+        err = fn(ctypes.byref(args), stream)
+        check(err == 0, f"{label} launch: {_build.error_string(err)}")
+        return result
     return go
+
+
+def raw_launcher(ladder, kind, y, u, v, geom, c):
+    ops = ladder._kernel_operands(kind, geom, str(y.device))
+    out = torch.empty((y.shape[0], 3, geom[4], geom[5]), device=y.device)
+    return launcher(ladder._ENTRIES[(kind, y.dtype)][1],
+                    ladder._ladder_args(y, u, v, out, ops, c), out, kind)
+
+
+def wire_launcher(ladder, kind, wire, geom, c):
+    ops = ladder._wire_kernel_operands(kind, geom, str(wire.device))
+    out = torch.empty((wire.shape[0], 3, geom[2], geom[3]),
+                      device=wire.device)
+    return launcher(ladder._WIRE[kind].entry,
+                    ladder._wire_args(kind, wire, out, ops, c), out, kind)
+
+
+def operand_bytes(ops) -> int:
+    """Bytes of the tensors in a dict of band operands (or a list of
+    such dicts)."""
+    dicts = ops if isinstance(ops, list) else [ops]
+    return sum(t.numel() * t.element_size() for d in dicts
+               for v in d.values()
+               for t in (v if isinstance(v, tuple) else (v,))
+               if isinstance(t, torch.Tensor))
+
+
+def sectors(addr) -> int:
+    """Bytes of the distinct 32-byte sectors holding these byte addresses."""
+    return np.unique(np.asarray(addr).ravel() // 32).size * 32
+
+
+def finish_bound(total, ops_row, ops_col, row_kind, dense):
+    """Bound of a batch that moves `total` bytes and does ops_row row-stage
+    (int8 or bf16) and ops_col bf16 column-stage operations."""
+    row_peak = PEAK_OPS["int8"] if row_kind == "i8" else PEAK_OPS["bf16"]
+    t_bytes = total / HBM_BYTES_PER_S * 1e3
+    t_ops = (ops_row / row_peak + ops_col / PEAK_OPS["bf16"]) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(total), "ops": int(ops_row + ops_col),
+            "dense_bytes": int(dense)}
 
 
 def bound(ladder, kind, geom, n, itemsize):
@@ -164,23 +225,41 @@ def bound(ladder, kind, geom, n, itemsize):
                                (m["ahc"], m["awc"], cw, 2)):
         rows = np.flatnonzero((ah != 0).any(axis=0))
         cols = np.flatnonzero((aw != 0).any(axis=1))
-        addr = rows[:, None] * (pw * itemsize) + cols[None, :] * itemsize
-        bytes_in += planes * np.unique(addr // 32).size * 32
+        bytes_in += planes * sectors(rows[:, None] * (pw * itemsize)
+                                     + cols[None, :] * itemsize)
         ops_row += planes * 2 * int((ah != 0).sum()) * cols.size
         ops_col += planes * 2 * int((aw != 0).sum()) * oh
-    ops_bytes = sum(t.numel() * t.element_size()
-                    for v in ladder._kernel_operands(kind, geom, "cuda:0").values()
-                    for t in (v if isinstance(v, tuple) else (v,))
-                    if isinstance(t, torch.Tensor))
-    total = n * bytes_in + ops_bytes + n * 3 * oh * ow * 4
-    row_peak = PEAK_OPS["int8"] if kind == "i8" else PEAK_OPS["bf16"]
-    t_bytes = total / HBM_BYTES_PER_S * 1e3
-    t_ops = (n * ops_row / row_peak + n * ops_col / PEAK_OPS["bf16"]) * 1e3
-    dense = n * (h * w + 2 * ch * cw) * itemsize + n * 3 * oh * ow * 4
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": int(total), "ops": int(n * (ops_row + ops_col)),
-            "dense_bytes": int(dense)}
+    out_bytes = n * 3 * oh * ow * 4
+    total = (n * bytes_in + operand_bytes(
+        ladder._kernel_operands(kind, geom, "cuda:0")) + out_bytes)
+    dense = n * (h * w + 2 * ch * cw) * itemsize + out_bytes
+    return finish_bound(total, n * ops_row, n * ops_col, kind, dense)
+
+
+def wire_bound(ladder, kind, geom, n, itemsize):
+    """bound() for a wire kernel: the sectors are those of the wire layout
+    (luma rows, then U,V rows of w samples, U at even and V at odd
+    samples), so interleaved U,V touches the sectors that planar U plus V
+    would; the row stage of U and V counts twice, as in bound()."""
+    h, w, oh, ow = geom[:4]
+    m = ladder._wire_matrices(kind, geom)
+    pitch = w * itemsize
+    bytes_in = ops_row = ops_col = 0
+    for ah, aw, first, step, planes in ((m["ahy"], m["awy"], 0, 1, 1),
+                                        (m["ahc"], m["awc"], h, 2, 2)):
+        rows = np.flatnonzero((ah != 0).any(axis=0))
+        cols = np.flatnonzero((aw != 0).any(axis=1))
+        samples = (step * cols[:, None] + np.arange(step)[None, :]).ravel()
+        bytes_in += sectors((first + rows[:, None]) * pitch
+                            + samples[None, :] * itemsize)
+        ops_row += planes * 2 * int((ah != 0).sum()) * cols.size
+        ops_col += planes * 2 * int((aw != 0).sum()) * oh
+    out_bytes = n * 3 * oh * ow * 4
+    total = (n * bytes_in + operand_bytes(
+        ladder._wire_kernel_operands(kind, geom, "cuda:0")) + out_bytes)
+    dense = n * (h * 3 // 2) * w * itemsize + out_bytes
+    return finish_bound(total, n * ops_row, n * ops_col,
+                        ladder._WIRE[kind].row, dense)
 
 
 def write_y4m_source(path: str, n: int, h: int, w: int, seed: int) -> None:
@@ -289,9 +368,6 @@ def abr_ladder(phase, rungs, path, sizes, tmp):
 
 
 def rung_launcher(rungs, kind, y, u, v, geom):
-    """Launch a rung kernel from prebuilt arguments (no per-call host
-    work), so that event time is device time.  Not counted in LAUNCHES."""
-    from gmat_tpu_torch.ops import _build
     sizes = geom[4]
     check(len(sizes) <= rungs.MAX_RUNGS, "one launch per ladder")
     ops = rungs._kernel_operands(kind, geom, str(y.device))
@@ -300,15 +376,9 @@ def rung_launcher(rungs, kind, y, u, v, geom):
                             (y.shape[0], oh // 2, ow // 2),
                             (y.shape[0], oh // 2, ow // 2)))
             for ow, oh in sizes]
-    args = rungs._rungs_args(y, u, v, outs, ops)
-    entry = getattr(_build.library(), rungs._ENTRIES[kind][1])
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def go():
-        err = entry(ctypes.byref(args), stream)
-        check(err == 0, f"rungs_{kind} launch: {_build.error_string(err)}")
-        return outs
-    return go
+    return launcher(rungs._ENTRIES[kind][1],
+                    rungs._rungs_args(y, u, v, outs, ops), outs,
+                    f"rungs_{kind}")
 
 
 def rung_bound(rungs, kind, geom, n):
@@ -330,24 +400,14 @@ def rung_bound(rungs, kind, geom, n):
             touched[np.ix_(rows, cols)] = True
             ops_row += planes * 2 * int((ah != 0).sum()) * cols.size
             ops_col += planes * 2 * int((aw != 0).sum()) * ah.shape[0]
-        addr = np.flatnonzero(touched)          # one byte per sample
-        bytes_in += planes * np.unique(addr // 32).size * 32
-    ops_bytes = sum(t.numel() * t.element_size()
-                    for r in rungs._kernel_operands(kind, geom, "cuda:0")
-                    for v in r.values()
-                    for t in (v if isinstance(v, tuple) else (v,))
-                    if isinstance(t, torch.Tensor))
+        # one byte per sample
+        bytes_in += planes * sectors(np.flatnonzero(touched))
     out_bytes = n * sum(oh * ow + 2 * (oh // 2) * (ow // 2)
                         for ow, oh in sizes)
-    total = n * bytes_in + ops_bytes + out_bytes
-    row_peak = PEAK_OPS["int8"] if kind == "i8" else PEAK_OPS["bf16"]
-    t_bytes = total / HBM_BYTES_PER_S * 1e3
-    t_ops = (n * ops_row / row_peak + n * ops_col / PEAK_OPS["bf16"]) * 1e3
+    total = (n * bytes_in + operand_bytes(
+        list(rungs._kernel_operands(kind, geom, "cuda:0"))) + out_bytes)
     dense = n * (h * w + 2 * ch * cw) + out_bytes
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": int(total), "ops": int(n * (ops_row + ops_col)),
-            "dense_bytes": int(dense)}
+    return finish_bound(total, n * ops_row, n * ops_col, kind, dense)
 
 
 def interpolate_rungs(y, u, v, sizes):
@@ -366,21 +426,28 @@ def interpolate_rungs(y, u, v, sizes):
     return outs
 
 
-def metrans_session(path, tmp):
-    """run_session on the Y4M source with libx264 rungs, where the host
-    runtime can be built (libav* present); otherwise say why not."""
+def av_precondition(phase: str) -> bool:
+    """Whether the host runtime can be built here (libav* libraries and
+    headers); prints `{phase}_precondition`, and `{phase}` with run: false
+    when it cannot."""
     found = {lib: ctypes.util.find_library(lib) for lib in AV_LIBS}
     arch = subprocess.run(["g++", "-print-multiarch"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     headers = any(os.path.exists(os.path.join(d, "libavcodec", "avcodec.h"))
                   for d in ("/usr/include", f"/usr/include/{arch}",
                             "/usr/local/include"))
-    print(json.dumps({"phase": "metrans_session_precondition",
-                      "find_library": found, "libavcodec_headers": headers}),
-          flush=True)
-    if not (all(found.values()) and headers):
-        emit("metrans_session", run=False,
-             why="no libavcodec on this machine")
+    ok = all(found.values()) and headers
+    emit(f"{phase}_precondition", find_library=found,
+         libavcodec_headers=headers, run=ok)
+    if not ok:
+        emit(phase, run=False, why="no libavcodec on this machine")
+    return ok
+
+
+def metrans_session(path, tmp):
+    """run_session on the Y4M source with libx264 rungs, where the host
+    runtime can be built (libav* present); otherwise say why not."""
+    if not av_precondition("metrans_session"):
         return None
     from gmat_tpu_torch.apps import metrans
     from gmat_tpu_torch.av import toolkit as tk
@@ -411,11 +478,121 @@ def metrans_session(path, tmp):
     return res
 
 
+def scene_phase(path):
+    """scene_scores on the ABR source's batches on the card, the last
+    frame and the mafd carried from batch to batch as FrameSelect carries
+    them, against the same calls on CPU copies; then the time per batch."""
+    from gmat_tpu_torch.av.ingest import decode_stream
+    from gmat_tpu_torch.ops import scene
+    carry, carry_cpu = (None, 0.0), (None, 0.0)
+    mafd_rel = score_err = 0.0
+    frames, last = 0, None
+    for fb, _pts, valid in decode_stream(path, batch=ABR_BATCH):
+        cpu = fb.with_planes({k: v.cpu() for k, v in fb.planes.items()})
+        score, mafd = scene.scene_scores_mafd(fb, *carry)
+        want, want_mafd = scene.scene_scores_mafd(cpu, *carry_cpu)
+        check(score.device.type == "cuda" and tuple(score.shape) == (fb.batch,)
+              and bool(torch.isfinite(score).all()), "scene: bad scores")
+        mafd_rel = max(mafd_rel, float(((mafd.cpu() - want_mafd).abs()
+                                        / want_mafd.abs()).max()))
+        # the score's own scale: min(mafd, |mafd - prev|) / 100 can cancel
+        # most digits of two mafds, so hold it to what 1e-5 relative on
+        # the mafds allows
+        score_err = max(score_err, float((score.cpu() - want).abs().max())
+                        / (2.0 * float(want_mafd.abs().max()) / 100.0))
+        carry = ({k: v[-1] for k, v in fb.planes.items()}, mafd[-1])
+        carry_cpu = ({k: v[-1] for k, v in cpu.planes.items()},
+                     want_mafd[-1])
+        frames += int(valid)
+        last = fb
+    check(frames == ABR_FRAMES, f"scene: {frames} frames")
+    check(mafd_rel <= SCENE_RTOL and score_err <= SCENE_RTOL,
+          f"scene vs CPU: mafd {mafd_rel}, score {score_err} relative")
+    ms, runs, host_ms = event_ms(lambda i: scene.scene_scores(last, *carry))
+    emit("scene", frames=frames, batch=ABR_BATCH, source=[H, W],
+         mafd_max_rel_err_vs_cpu=mafd_rel,
+         score_max_err_vs_cpu_rel_to_mafd=score_err,
+         ms_per_batch=ms, runs_ms=runs, host_ms=host_ms)
+    return ms
+
+
+def smart_clip(path: str) -> None:
+    """A libx264 clip: flat frames, luma 20 + 3 * i, a scene cut at frame
+    SMART_CUT (test_extractor.py's make_clip)."""
+    from gmat_tpu_torch.av import toolkit as tk
+    w, h = SMART_SIZE
+    enc = tk.Encoder("libx264", w, h, fps=(30, 1), gop=12, preset="veryfast",
+                     crf=14.0)
+    pkts = []
+    for i in range(SMART_FRAMES):
+        lum, uu, vv = ((20 + 3 * i, 110, 140) if i < SMART_CUT
+                       else (235 - (i - SMART_CUT) * 2, 60, 200))
+        pkts += enc.encode(np.full((h, w), lum, np.uint8),
+                           np.full((h // 2, w // 2), uu, np.uint8),
+                           np.full((h // 2, w // 2), vv, np.uint8), pts=i)
+    pkts += enc.flush()
+    mux = tk.Muxer(path, w, h, (30, 1), tk.CODEC_H264, enc.extradata())
+    for p in pkts:
+        mux.write(p)
+    mux.close()
+    enc.close()
+
+
+def smart_decode(tmp, device="cuda"):
+    """FrameExtractor, FrameSelect (scores on `device`) and
+    extract_to_torch on a small libx264 clip, where the host runtime can
+    be built; otherwise say why not."""
+    if not av_precondition("smart_decode"):
+        return None
+    from gmat_tpu_torch.av.extractor import FrameExtractor, FrameSelect
+    from gmat_tpu_torch.av.torch_interop import extract_to_torch
+    clip = os.path.join(tmp, "smart.mp4")
+    smart_clip(clip)
+
+    def index(fx, pts):
+        num, den = fx.dm.time_base
+        return round(pts * num / den * 30.0)
+
+    fx = FrameExtractor(clip, frame_interval=10)
+    picked = [index(fx, f[3]) for f in fx.frames()]
+    stats = {k: getattr(fx, k) for k in ("n_decoded", "n_skipped_seek",
+                                         "n_skipped_nonref")}
+    fx.close()
+    check(picked == list(range(0, SMART_FRAMES, 10))
+          and stats["n_decoded"] < SMART_FRAMES,
+          f"FrameExtractor picked {picked}, {stats}")
+    selected = {}
+    for dev in (device, "cpu"):
+        fs = FrameSelect(clip, threshold=0.4, batch_size=16, device=dev)
+        selected[dev] = [(index(fs, f[3]), f[4]) for f in fs.frames()]
+        fs.close()
+    sel = selected[device]
+    check(len(sel) == 1 and sel[0][0] == SMART_CUT
+          and [s[0] for s in selected["cpu"]] == [SMART_CUT]
+          and abs(sel[0][1] - selected["cpu"][0][1])
+          <= SCENE_RTOL * selected["cpu"][0][1],
+          f"FrameSelect: {selected}")
+    outs = {dev: list(extract_to_torch(clip, 20, (64, 48), batch=2,
+                                       device=dev))
+            for dev in (device, "cpu")}
+    shapes = [list(t.shape) for t, _ in outs[device]]
+    check(shapes == [[2, 3, 48, 64], [1, 3, 48, 64]]
+          and all(t.device.type == torch.device(device).type
+                  for t, _ in outs[device]), f"extract_to_torch {shapes}")
+    err = max(lsb(t.cpu(), c) for (t, _), (c, _) in zip(outs[device],
+                                                        outs["cpu"]))
+    check(err <= LSB_GATE, f"extract_to_torch vs CPU: {err} LSB")
+    emit("smart_decode", run=True, extracted=picked, stats=stats,
+         selected=sel, extract_to_torch_shapes=shapes,
+         extract_to_torch_max_lsb_vs_cpu=err)
+    return sel
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
                  "script needs one CUDA device")
-    from gmat_tpu_torch.core.frame import FrameBatch
+    from gmat_tpu_torch.core.frame import FrameBatch, pack_nv12
     from gmat_tpu_torch.ops import _build, fused, ladder, rungs
 
     torch.set_float32_matmul_precision("highest")
@@ -423,7 +600,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     # ---------------------------------------------------------- device
-    name = torch.cuda.get_device_name(0)
+    card_name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     check(cap == (9, 0), f"compute capability {cap}, want (9, 0)")
     smi = subprocess.run(
@@ -432,7 +609,7 @@ def main() -> None:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     _build.library()
-    emit("device", name=name, capability=list(cap), nvidia_smi=smi,
+    emit("device", name=card_name, capability=list(cap), nvidia_smi=smi,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, build_s=time.perf_counter() - t0,
          ptxas=_build.BUILD_INFO.get("ptxas", ""))
@@ -450,7 +627,7 @@ def main() -> None:
     check(tuple(out.shape) == (N, 3, OUT, OUT) and out.dtype == torch.float32,
           f"main path gave {tuple(out.shape)} {out.dtype}")
     check(bool(torch.isfinite(out).all()), "main path output not finite")
-    check(main_counts == {"ladder_i8": 1, "ladder_bf16": 0},
+    check(main_counts == want_counts(ladder, ladder_i8=1),
           f"main path launches {main_counts}")
     ref = ladder.fused_ladder_i8(*yuv0, OUT, OUT, reference=True)
     err_k1 = lsb(out, ref)
@@ -489,7 +666,7 @@ def main() -> None:
     k2_444 = fused.preprocess_nchw(fb444, OUT, OUT)
     torch.cuda.synchronize()
     bf16_counts = dict(ladder.LAUNCHES)
-    check(bf16_counts == {"ladder_i8": 0, "ladder_bf16": 3},
+    check(bf16_counts == want_counts(ladder, ladder_bf16=3),
           f"bf16 phase launches {bf16_counts}")
     errs_k2 = {
         "u8": lsb(k2_u8, ladder.fused_ladder(*yuv0, OUT, OUT,
@@ -514,7 +691,7 @@ def main() -> None:
     k57 = ladder.fused_ladder_i8(*p57, 32, 32)
     torch.cuda.synchronize()
     wide_counts = dict(ladder.LAUNCHES)
-    check(wide_counts == {"ladder_i8": 2, "ladder_bf16": 0},
+    check(wide_counts == want_counts(ladder, ladder_i8=2),
           f"wide phase launches {wide_counts}")
     err_k3 = lsb(k3, ladder.fused_ladder_i8(*p8k, OUT, OUT, reference=True))
     err_57 = lsb(k57, ladder.fused_ladder_i8(*p57, 32, 32, reference=True))
@@ -523,6 +700,60 @@ def main() -> None:
     emit("ladder_wide", launches=wide_counts, max_lsb_vs_plain_8k=err_k3,
          max_lsb_vs_plain_5760x3240=err_57, shape_8k=list(k3.shape))
     del p57, k3, k57
+
+    # ----------------------------------------- wire lane (K6, K7, K8)
+    def p010_wire(planes):
+        """P010 wire of 10-bit planes: samples << 6, U,V interleaved."""
+        fb = FrameBatch({k: p.to(torch.int32) << 6
+                         for k, p in zip("yuv", planes)}, "yuv420p", W, H)
+        return pack_nv12(fb).to(torch.uint16)
+
+    nv12, p010 = pack_nv12(bufs[0]), p010_wire(p10)
+    nv12_8k = pack_nv12(FrameBatch(dict(zip("yuv", p8k)), "yuv420p", 7680,
+                                   4320))
+    zero_counts(ladder)
+    k6 = ladder.fused_ladder_nv12(nv12, OUT, OUT)
+    k7 = ladder.fused_ladder_nv12_i8(nv12, OUT, OUT)
+    k6_bicubic = ladder.fused_ladder_nv12_i8(nv12, OUT, OUT, method="bicubic")
+    k8 = ladder.fused_ladder_p010(p010, OUT, OUT)
+    k7_8k = ladder.fused_ladder_nv12_i8(nv12_8k, OUT, OUT)
+    torch.cuda.synchronize()
+    wire_counts = dict(ladder.LAUNCHES)
+    check(wire_counts == want_counts(ladder, ladder_nv12=2, ladder_nv12_i8=2,
+                                     ladder_p010=1),
+          f"wire lane launches {wire_counts}")
+    for t in (k6, k7, k6_bicubic, k8, k7_8k):
+        check(tuple(t.shape[1:]) == (3, OUT, OUT) and t.dtype == torch.float32
+              and bool(torch.isfinite(t).all()), "wire lane output")
+    errs_wire = {
+        "ladder_nv12": max(
+            lsb(k6, ladder.fused_ladder_nv12(nv12, OUT, OUT, reference=True)),
+            lsb(k6_bicubic, ladder.fused_ladder_nv12(
+                nv12, OUT, OUT, method="bicubic", reference=True))),
+        "ladder_nv12_i8": max(
+            lsb(k7, ladder.fused_ladder_nv12_i8(nv12, OUT, OUT,
+                                                reference=True)),
+            lsb(k7_8k, ladder.fused_ladder_nv12_i8(nv12_8k, OUT, OUT,
+                                                   reference=True))),
+        "ladder_p010": lsb(k8, ladder.fused_ladder_p010(p010, OUT, OUT,
+                                                        reference=True)),
+    }
+    for kname, tol in (("ladder_nv12", LSB_BF16), ("ladder_nv12_i8", LSB_I8),
+                       ("ladder_p010", LSB_BF16)):
+        check(errs_wire[kname] <= tol,
+              f"{kname} vs plain: {errs_wire[kname]} LSB")
+    twins = {   # each against the planar kernel on the same samples
+        "ladder_nv12": lsb(k6, ladder.fused_ladder(*yuv0, OUT, OUT)),
+        "ladder_nv12_i8": lsb(k7, ladder.fused_ladder_i8(*yuv0, OUT, OUT)),
+        "ladder_p010": lsb(k8, ladder.fused_ladder_u16(*p10, OUT, OUT,
+                                                       bits=10)),
+    }
+    for kname, e in twins.items():
+        check(e <= LSB_TWIN, f"{kname} vs its planar twin: {e} LSB")
+    emit("wire_lane", shape=[N, H * 3 // 2, W], launches=wire_counts,
+         max_lsb_vs_plain=errs_wire, max_lsb_vs_planar_twin=twins,
+         shape_8k=list(nv12_8k.shape))
+    del k6, k7, k6_bicubic, k8, k7_8k, nv12_8k
 
     # ------------------------------------ ABR ladder (K4) and K5 (4K)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -604,7 +835,9 @@ def main() -> None:
              max_lsb_vs_exact_nearest=exact_near)
         del k5, near, p720
 
+        scene_ms = scene_phase(src)
         metrans_session(src, tmp)
+        smart_decode(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -636,6 +869,26 @@ def main() -> None:
         timing[case] = {"ms": ms, "runs_ms": runs, "host_ms": host_ms,
                         "plain_ms": plain_ms,
                         "frames": n, "frames_per_s": n / ms * 1e3,
+                        "launches_per_batch": 1,
+                        "bound_share": b["bound_ms"] / ms, **b}
+    geom_w = (H, W, OUT, OUT, "bilinear")
+    pair_nv12, pair_p010 = (nv12, pack_nv12(bufs[1])), (p010, p010_wire(p10b))
+    wire_cases = {   # name: (kind, constants, two wire batches)
+        "ladder_nv12": ("nv12", c8, pair_nv12),
+        "ladder_nv12_i8": ("nv12_i8", c8, pair_nv12),
+        "ladder_p010": ("p010", c10, pair_p010),
+    }
+    for case, (kind, c, pair) in wire_cases.items():
+        go = [wire_launcher(ladder, kind, p, geom_w, c) for p in pair]
+        ms, runs, host_ms = event_ms(lambda i: go[i % 2]())
+        pops = ladder._wire_plain_operands(kind, geom_w, "cuda:0")
+        plain_ms, _, _ = event_ms(
+            lambda i: ladder._WIRE_PLAIN[kind](pair[i % 2], pops, c),
+            calls=2, reps=5)
+        b = wire_bound(ladder, kind, geom_w, N, pair[0].element_size())
+        timing[case] = {"ms": ms, "runs_ms": runs, "host_ms": host_ms,
+                        "plain_ms": plain_ms, "library_ms": None,
+                        "frames": N, "frames_per_s": N / ms * 1e3,
                         "launches_per_batch": 1,
                         "bound_share": b["bound_ms"] / ms, **b}
     p4kb = make(n4k, 2160, 3840, 1080, 1920)
@@ -682,6 +935,7 @@ def main() -> None:
                           "host_ms": e2e_host,
                           "frames_per_s": N / e2e_ms * 1e3},
          separate_op_path={"ms": sep_ms, "frames_per_s": N / sep_ms * 1e3},
+         scene_scores={"ms_per_batch": scene_ms, "batch": ABR_BATCH},
          nvidia_smi=smi)
 
     # --------------------------------------------------------- summary
@@ -719,11 +973,18 @@ def main() -> None:
         row("rungs_i8 (K5 at 4K)", "rungs_i8_4k", 907,
             "_rungs_kernel_i8_chunked", k5_counts["rungs_i8"], err_k5,
             "rungs.cu", err_k5),
+        row("ladder_nv12", "ladder_nv12", 321, "_ladder_nv12_kernel",
+            wire_counts["ladder_nv12"], errs_wire["ladder_nv12"]),
+        row("ladder_nv12_i8", "ladder_nv12_i8", 611,
+            "_ladder_nv12_kernel_i8", wire_counts["ladder_nv12_i8"],
+            errs_wire["ladder_nv12_i8"]),
+        row("ladder_p010", "ladder_p010", 734, "_ladder_p010_kernel",
+            wire_counts["ladder_p010"], errs_wire["ladder_p010"]),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": card_name,
         "count": torch.cuda.device_count()}}), flush=True)
 
 

@@ -26,8 +26,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # entry points of the library: launchers take (args struct, stream)
 _LAUNCHERS = ("gmat_ladder_i8", "gmat_ladder_bf16_u8", "gmat_ladder_bf16_u16",
+              "gmat_ladder_nv12", "gmat_ladder_nv12_i8", "gmat_ladder_p010",
               "gmat_rungs_i8", "gmat_rungs_bf16")
-_SIZES = ("gmat_ladder_args_size", "gmat_rungs_args_size")
+_SIZES = ("gmat_ladder_args_size", "gmat_wire_args_size",
+          "gmat_rungs_args_size")
 
 # what the last build in this process did: seconds, library path, ptxas log
 BUILD_INFO: dict = {}

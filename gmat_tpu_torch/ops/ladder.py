@@ -1,5 +1,5 @@
 """Fused preprocess ladder on hand-written Hopper kernels — counterpart of
-`gmat_tpu/ops/pallas_kernels.py` (its host half, and kernels K1, K2, K3).
+`gmat_tpu/ops/pallas_kernels.py` (its host half, and kernels K1-K3, K6-K8).
 
     u8/u16 YUV planes -> row resample -> column resample -> 3x3 CSC ->
     clip -> (x - shift) / norm -> (N, 3, out_h, out_w) f32, one launch
@@ -13,13 +13,20 @@ Kernels (`gmat_tpu_torch/csrc/ladder.cu`, built at first use by `_build`):
     `fused_ladder_i8` sends every frame size to the kernel.
   * `ladder_bf16` replaces K2 `_ladder_kernel` (bf16 row stage, u8 or
     lsb-aligned u16 samples).
+  * The wire-format lane: `ladder_nv12` replaces K6 `_ladder_nv12_kernel`,
+    `ladder_nv12_i8` K7 `_ladder_nv12_kernel_i8` and `ladder_p010` K8
+    `_ladder_p010_kernel`.  They read the (N, 3H/2, W) surface a hardware
+    decoder hands over (luma rows, then interleaved U,V rows) and
+    deinterleave on the fly; the TPU kernels' interleave-aware (W, out_w)
+    chroma column matrices become the planar chroma band walked over
+    U,V pairs.
 
 Each kernel has a plain PyTorch version here (`_ladder_i8_plain`,
-`_ladder_bf16_plain`) that repeats its numerics with tensor ops on any
-device.  The wrappers take it only for CPU tensors, or when the caller
-passes `reference=True` (the counterpart of the JAX `interpret=True`); a
-CUDA tensor launches the kernel or raises.  `LAUNCHES` counts the kernel
-launches per kernel name.
+`_ladder_bf16_plain`, `_WIRE_PLAIN`) that repeats its numerics with tensor
+ops on any device.  The wrappers take it only for CPU tensors, or when the
+caller passes `reference=True` (the counterpart of the JAX
+`interpret=True`); a CUDA tensor launches the kernel or raises.
+`LAUNCHES` counts the kernel launches per kernel name.
 
 Crop, gaussian smooth and flip fold into the four resample matrices on
 the host (numpy, once per geometry), so the kernels never see them.
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,7 +45,8 @@ from . import _build
 from .resize import f32_matmul, resample_matrix
 from .smooth import smooth_matrix
 
-LAUNCHES = {"ladder_i8": 0, "ladder_bf16": 0}
+LAUNCHES = {"ladder_i8": 0, "ladder_bf16": 0, "ladder_nv12": 0,
+            "ladder_nv12_i8": 0, "ladder_p010": 0}
 
 _METHODS = ("bilinear", "nearest", "bicubic", "area", "lanczos3")
 
@@ -226,6 +235,53 @@ def _row_col_operands(kind: str, ahy, ahc, awy, awc) -> dict:
     return ops
 
 
+class _Wire(NamedTuple):
+    """One wire kernel: its launch name, row stage ("bf16" or "i8"), sample
+    dtype and bits, the scale after the column stage, and its C entry."""
+    name: str
+    row: str
+    dtype: torch.dtype
+    bits: int
+    post: float
+    entry: str
+
+
+_WIRE = {"nv12": _Wire("ladder_nv12", "bf16", torch.uint8, 8, 1.0,
+                       "gmat_ladder_nv12"),
+         "nv12_i8": _Wire("ladder_nv12_i8", "i8", torch.uint8, 8, 1.0,
+                          "gmat_ladder_nv12_i8"),
+         # samples in the high bits: 1/64 brings them to 10-bit scale
+         "p010": _Wire("ladder_p010", "bf16", torch.uint16, 10, 1.0 / 64.0,
+                       "gmat_ladder_p010")}
+
+
+def _interleave(awc: np.ndarray):
+    """(W/2, out_w) planar chroma column matrix -> the TPU kernels' (W,
+    out_w) pair for interleaved U,V rows: U reads even columns, V odd."""
+    awu = np.zeros((2 * awc.shape[0], awc.shape[1]), awc.dtype)
+    awv = np.zeros_like(awu)
+    awu[0::2] = awc
+    awv[1::2] = awc
+    return awu, awv
+
+
+@lru_cache(maxsize=32)
+def _wire_matrices(kind: str, geom: tuple) -> dict:
+    """The operands wire kernel `kind` reads for geom (h, w, out_h, out_w,
+    method), as numpy, as the JAX builders compute them
+    (`pallas_kernels.py:372-383,644-655,763-772`): those of
+    `_row_col_operands` with the planar (W/2, out_w) chroma column matrix
+    `awc`, plus its interleave-aware pair `awu`/`awv` (W, out_w)."""
+    h, w, out_h, out_w, method = geom
+    ops = _row_col_operands(_WIRE[kind].row,
+                            resample_matrix(h, out_h, method),
+                            resample_matrix(h // 2, out_h, method),
+                            resample_matrix(w, out_w, method).T,
+                            resample_matrix(w // 2, out_w, method).T)
+    ops["awu"], ops["awv"] = _interleave(ops["awc"])
+    return ops
+
+
 def _epilogue(colorspace: str, bits: int, norm: float, shift) -> dict:
     """CSC/normalize constants, as the f32 values the TPU kernels use."""
     low, mid = yuv_offsets(bits)
@@ -281,20 +337,17 @@ def _ladder_i8_plain(y, u, v, ops: dict, c: dict) -> torch.Tensor:
     return _csc(yy, uu, vv, c)
 
 
-def _rowcol_bf16_plain(x, ah, aw):
+def _rowcol_bf16_plain(x, ah, aw, k_chunks=None):
     # samples round to bf16 first (a 10-bit value above 256 is not exact
-    # in bf16); the row stage sums in f32 over the TPU kernel's 512-row
-    # chunks and rounds to bf16 before the column stage
+    # in bf16); the row stage sums in f32 over the TPU kernel's chunks of
+    # rows (k_chunks of h // k_chunks rows, then the remainder; by default
+    # 512-row chunks) and rounds to bf16 before the column stage
     xb = x.to(torch.float32).to(torch.bfloat16).to(torch.float32)
     h = x.shape[-2]
-    k_chunks = max(1, h // 512)
-    chunk = h // k_chunks
-    bounds = [(c * chunk, (c + 1) * chunk) for c in range(k_chunks)]
-    if h > k_chunks * chunk:
-        bounds.append((k_chunks * chunk, h))
+    chunk = max(h // (k_chunks or max(1, h // 512)), 1)
     acc = None
-    for lo, hi in bounds:
-        part = f32_matmul(ah[:, lo:hi], xb[:, lo:hi])
+    for lo in range(0, h, chunk):
+        part = f32_matmul(ah[:, lo:lo + chunk], xb[:, lo:lo + chunk])
         acc = part if acc is None else acc + part
     tb = acc.to(torch.bfloat16).to(torch.float32)
     return f32_matmul(tb, aw)
@@ -309,6 +362,55 @@ def _ladder_bf16_plain(y, u, v, ops: dict, c: dict) -> torch.Tensor:
 
 
 _PLAIN = {"i8": _ladder_i8_plain, "bf16": _ladder_bf16_plain}
+
+
+def _wire_split(yuv):
+    """Luma rows and interleaved U,V rows of a (N, 3H/2, W) wire batch."""
+    h = yuv.shape[-2] * 2 // 3
+    return yuv[:, :h], yuv[:, h:]
+
+
+def _nv12_plain(yuv, ops: dict, c: dict) -> torch.Tensor:
+    """Plain PyTorch version of the `ladder_nv12` kernel (K6): luma over
+    512-row chunks, the shared U,V row stage over half as many chunks
+    (`pallas_kernels.py:344-345`), the interleave-aware column matrices
+    splitting U (even columns) from V (odd)."""
+    y, uv = _wire_split(yuv)
+    k_chunks = max(1, y.shape[-2] // 512)
+    kc = max(k_chunks // 2, 1)
+    yy = _rowcol_bf16_plain(y, ops["ahy"], ops["awy"], k_chunks) - c["low"]
+    uu = _rowcol_bf16_plain(uv, ops["ahc"], ops["awu"], kc) - c["mid"]
+    vv = _rowcol_bf16_plain(uv, ops["ahc"], ops["awv"], kc) - c["mid"]
+    return _csc(yy, uu, vv, c)
+
+
+def _nv12_i8_plain(yuv, ops: dict, c: dict) -> torch.Tensor:
+    """Plain PyTorch version of the `ladder_nv12_i8` kernel (K7)."""
+    y, uv = _wire_split(yuv)
+    yy = _rowcol_i8_plain(y, ops["ahy"], ops["awy"], ops["offy"],
+                          ops["inv_sy"]) - c["low"]
+    uu = _rowcol_i8_plain(uv, ops["ahc"], ops["awu"], ops["offc"],
+                          ops["inv_sc"]) - c["mid"]
+    vv = _rowcol_i8_plain(uv, ops["ahc"], ops["awv"], ops["offc"],
+                          ops["inv_sc"]) - c["mid"]
+    return _csc(yy, uu, vv, c)
+
+
+def _p010_plain(yuv, ops: dict, c: dict) -> torch.Tensor:
+    """Plain PyTorch version of the `ladder_p010` kernel (K8): the RAW u16
+    wire value rounds to bf16 (not the sample shifted down: they differ
+    where the low 6 bits are set), one row chunk, and the 1/64 of the msb
+    alignment after the column stage."""
+    y, uv = _wire_split(yuv)
+    inv64 = 1.0 / 64.0
+    yy = _rowcol_bf16_plain(y, ops["ahy"], ops["awy"], 1) * inv64 - c["low"]
+    uu = _rowcol_bf16_plain(uv, ops["ahc"], ops["awu"], 1) * inv64 - c["mid"]
+    vv = _rowcol_bf16_plain(uv, ops["ahc"], ops["awv"], 1) * inv64 - c["mid"]
+    return _csc(yy, uu, vv, c)
+
+
+_WIRE_PLAIN = {"nv12": _nv12_plain, "nv12_i8": _nv12_i8_plain,
+               "p010": _p010_plain}
 
 
 # ------------------------------------------------------- kernel launches
@@ -362,6 +464,12 @@ class _Band(ctypes.Structure):
                 ("wts", ctypes.c_void_p), ("stride", ctypes.c_int32)]
 
 
+def _band_arg(ops: dict, name: str) -> _Band:
+    lo, n, packed = ops[name]
+    return _Band(lo.data_ptr(), n.data_ptr(), packed.data_ptr(),
+                 packed.shape[1])
+
+
 class _LadderArgs(ctypes.Structure):
     """Mirror of `struct LadderArgs` in csrc/ladder.cu."""
     _fields_ = ([(k, ctypes.c_void_p) for k in ("y", "u", "v", "out")]
@@ -379,15 +487,10 @@ class _LadderArgs(ctypes.Structure):
 def _ladder_args(y, u, v, out, ops: dict, c: dict) -> _LadderArgs:
     """Kernel arguments: pointers of the planes, output and band
     operands, shapes and the epilogue constants."""
-    def band(name):
-        lo, n, packed = ops[name]
-        return _Band(lo.data_ptr(), n.data_ptr(), packed.data_ptr(),
-                     packed.shape[1])
-
     off = ("off_y", "off_c")
     return _LadderArgs(
         y.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
-        band("row_y"), band("col_y"), band("row_c"), band("col_c"),
+        *(_band_arg(ops, k) for k in ("row_y", "col_y", "row_c", "col_c")),
         *(ops[k].data_ptr() if k in ops else None for k in off),
         y.shape[0], y.shape[1], y.shape[2], u.shape[1], u.shape[2],
         out.shape[2], out.shape[3],
@@ -445,6 +548,98 @@ def _run(kind: str, y, u, v, geom: tuple, c: dict, reference: bool):
         ops = _plain_operands(kind, geom, str(y.device))
         return _PLAIN[kind](y, u, v, ops, c)
     return _launch(kind, y, u, v, geom, c)
+
+
+@lru_cache(maxsize=32)
+def _wire_plain_operands(kind: str, geom: tuple, device: str) -> dict:
+    return _tensors(_wire_matrices(kind, geom), device)
+
+
+@lru_cache(maxsize=32)
+def _wire_kernel_operands(kind: str, geom: tuple, device: str) -> dict:
+    """Band-form operands of a wire kernel: the chroma column band is the
+    planar one (W/2 inputs), which the kernel walks over U,V pairs."""
+    return _band_operands(_WIRE[kind].row, _wire_matrices(kind, geom),
+                          device)
+
+
+class _WireArgs(ctypes.Structure):
+    """Mirror of `struct WireArgs` in csrc/ladder.cu."""
+    _fields_ = ([(k, ctypes.c_void_p) for k in ("yuv", "out")]
+                + [(k, _Band) for k in ("row_y", "col_y", "row_c", "col_c")]
+                + [(k, ctypes.c_void_p) for k in ("off_y", "off_c")]
+                + [(k, ctypes.c_int32) for k in ("n", "h", "w", "out_h",
+                                                  "out_w")]
+                + [(k, ctypes.c_float) for k in ("inv_sy", "inv_sc", "post")]
+                + [("mat", ctypes.c_float * 9)]
+                + [(k, ctypes.c_float) for k in ("low", "mid", "maxv",
+                                                  "inv_norm")]
+                + [("shift", ctypes.c_float * 3)])
+
+
+def _wire_args(kind: str, yuv, out, ops: dict, c: dict) -> _WireArgs:
+    """Kernel arguments of a wire kernel (see `_ladder_args`)."""
+    off = ("off_y", "off_c")
+    return _WireArgs(
+        yuv.data_ptr(), out.data_ptr(),
+        *(_band_arg(ops, k) for k in ("row_y", "col_y", "row_c", "col_c")),
+        *(ops[k].data_ptr() if k in ops else None for k in off),
+        yuv.shape[0], yuv.shape[1] * 2 // 3, yuv.shape[2],
+        out.shape[2], out.shape[3],
+        ops.get("inv_sy", 1.0), ops.get("inv_sc", 1.0), _WIRE[kind].post,
+        (ctypes.c_float * 9)(*c["mat"].reshape(-1).tolist()),
+        c["low"], c["mid"], c["maxv"], c["inv_norm"],
+        (ctypes.c_float * 3)(*c["shift"]))
+
+
+def _launch_wire(kind: str, yuv, geom: tuple, c: dict) -> torch.Tensor:
+    """Launch wire kernel `kind` on a CUDA wire batch; raises on what it
+    does not take."""
+    name, dtype = _WIRE[kind].name, _WIRE[kind].dtype
+    if yuv.device.type != "cuda":
+        raise ValueError(f"the {name} kernel takes CUDA tensors, got "
+                         f"{yuv.device}")
+    if yuv.dtype != dtype:
+        raise TypeError(f"the {name} kernel takes {dtype}, got {yuv.dtype}")
+    if not yuv.is_contiguous():
+        raise ValueError(f"the {name} kernel takes a contiguous wire batch")
+    if yuv.data_ptr() % (2 * yuv.element_size()):
+        # the kernel loads each U,V pair at once
+        raise ValueError(f"the {name} kernel takes a wire batch aligned "
+                         "to a U,V pair")
+    if not 0 < yuv.shape[0] <= 65535:
+        raise ValueError(f"batch {yuv.shape[0]} outside 1..65535")
+    lib = _build.library()
+    if lib.gmat_wire_args_size() != ctypes.sizeof(_WireArgs):
+        raise RuntimeError("_WireArgs does not match WireArgs in "
+                           "csrc/ladder.cu")
+    ops = _wire_kernel_operands(kind, geom, str(yuv.device))
+    out = torch.empty((yuv.shape[0], 3, geom[2], geom[3]),
+                      dtype=torch.float32, device=yuv.device)
+    args = _wire_args(kind, yuv, out, ops, c)
+    with torch.cuda.device(yuv.device):
+        err = getattr(lib, _WIRE[kind].entry)(
+            ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: {_build.error_string(err)}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def _wire(kind: str, what: str, yuv, out_h, out_w, colorspace, method,
+          norm, shift, reference: bool) -> torch.Tensor:
+    """Validate a wire batch as the JAX entries do, then run wire kernel
+    `kind` (its plain version on CPU tensors or under `reference`)."""
+    n, h32, w = yuv.shape
+    if h32 % 3 or w % 2 or (h32 * 2 // 3) % 2:
+        raise ValueError(f"{what}: ({h32}, {w}) "
+                         "(rows must be H*3/2 with even H, width even)")
+    geom = (h32 * 2 // 3, w, out_h, out_w, method)
+    c = _epilogue(colorspace, _WIRE[kind].bits, norm, shift)
+    if reference or yuv.device.type == "cpu":
+        ops = _wire_plain_operands(kind, geom, str(yuv.device))
+        return _WIRE_PLAIN[kind](yuv, ops, c)
+    return _launch_wire(kind, yuv, geom, c)
 
 
 # ------------------------------------------------------------ public API
@@ -514,3 +709,40 @@ def fused_ladder_i8(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     geom = (h, w, ch, cw, out_h, out_w, method, crop_box, smooth, flip)
     return _run("i8", y, u, v, geom, _epilogue(colorspace, 8, norm, shift),
                 reference)
+
+
+def fused_ladder_nv12(yuv: torch.Tensor, out_h: int, out_w: int,
+                      colorspace: str = "bt709", method: str = "bilinear",
+                      norm: float = 255.0, shift=(0.0, 0.0, 0.0),
+                      reference: bool = False) -> torch.Tensor:
+    """Wire-format NV12 (N, H*3/2, W) u8 -> (N, 3, out_h, out_w) f32 on
+    the `ladder_nv12` kernel; the U,V deinterleave rides the chroma
+    column stage."""
+    return _wire("nv12", "not an NV12 wire shape", yuv, out_h, out_w,
+                 colorspace, method, norm, shift, reference)
+
+
+def fused_ladder_nv12_i8(yuv: torch.Tensor, out_h: int, out_w: int,
+                         colorspace: str = "bt709",
+                         method: str = "bilinear", norm: float = 255.0,
+                         shift=(0.0, 0.0, 0.0),
+                         reference: bool = False) -> torch.Tensor:
+    """Wire-format NV12 on the int8-row-stage `ladder_nv12_i8` kernel.
+    Methods other than bilinear and nearest go to `fused_ladder_nv12`, as
+    the JAX entry sends them (no tap gate here)."""
+    if method not in ("bilinear", "nearest"):
+        return fused_ladder_nv12(yuv, out_h, out_w, colorspace, method,
+                                 norm, shift, reference)
+    return _wire("nv12_i8", "not an NV12 wire shape", yuv, out_h, out_w,
+                 colorspace, method, norm, shift, reference)
+
+
+def fused_ladder_p010(yuv: torch.Tensor, out_h: int, out_w: int,
+                      colorspace: str = "bt709", method: str = "bilinear",
+                      norm: float = 0.0, shift=(0.0, 0.0, 0.0),
+                      reference: bool = False) -> torch.Tensor:
+    """P010 wire format (N, H*3/2, W) u16 (msb-aligned 10-bit samples,
+    interleaved U,V rows) -> (N, 3, out_h, out_w) f32 on the `ladder_p010`
+    kernel.  norm=0 defaults to 1023 (unit-range output)."""
+    return _wire("p010", "not a P010 wire shape", yuv, out_h, out_w,
+                 colorspace, method, norm or 1023.0, shift, reference)

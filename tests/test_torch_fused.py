@@ -109,7 +109,7 @@ def test_auto_on_cpu_takes_separate_ops(rng):
         ladder.LAUNCHES[k] = 0
     auto = fused.preprocess_nchw(fb, 48, 32)
     never = fused.preprocess_nchw(fb, 48, 32, use_kernel="never")
-    assert ladder.LAUNCHES == {"ladder_i8": 0, "ladder_bf16": 0}
+    assert set(ladder.LAUNCHES.values()) == {0}
     torch.testing.assert_close(auto, never, rtol=0, atol=0)
     with pytest.raises(ValueError, match="use_kernel"):
         fused.preprocess_nchw(fb, 48, 32, use_kernel="interpret")

@@ -27,7 +27,9 @@ def test_import_pulls_in_no_jax():
         "gmat_tpu_torch.av.ingest, gmat_tpu_torch.av.rawvideo, "
         "gmat_tpu_torch.av.toolkit, gmat_tpu_torch.av.native, "
         "gmat_tpu_torch.utils.encparam, gmat_tpu_torch.utils.stopwatch, "
-        "gmat_tpu_torch.apps.metrans\n"
+        "gmat_tpu_torch.apps.metrans, gmat_tpu_torch.ops.scene, "
+        "gmat_tpu_torch.av.extractor, gmat_tpu_torch.av.torch_interop, "
+        "gmat_tpu_torch.apps.extract, gmat_tpu_torch.utils.logger\n"
         "bad = [m for m in sys.modules if m.startswith('jax') "
         "or m == 'gmat_tpu' or m.startswith('gmat_tpu.')]\n"
         "print(bad)\n"
@@ -77,6 +79,9 @@ def test_kernel_wrappers_take_no_other_device():
         ladder.fused_ladder(y, u, v, 8, 8)
     with pytest.raises(ValueError, match="CUDA"):
         rungs.fused_rungs(y, u, v, [(8, 8)])
+    wire = torch.zeros((1, 24, 16), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ladder.fused_ladder_nv12_i8(wire, 8, 8)
 
 
 def test_find_nvcc(tmp_path, monkeypatch):
