@@ -3,7 +3,8 @@
 `library()` compiles `gmat_tpu_torch/csrc/*.cu` with nvcc (one process per
 source, all started together) and links them into one shared library with
 a plain C interface, under `gmat_tpu_torch/build/` (listed in .gitignore),
-keyed by a hash of the sources and flags, and loads it.  Only
+keyed by a hash of the sources and flags, and loads it; nvcc's ptxas
+report (registers, shared memory, spills) is kept beside it.  Only
 a call that needs a kernel gets here: importing the package never needs
 nvcc.  nvcc is looked up on PATH, then in $CUDA_HOME/bin, then in
 /usr/local/cuda/bin; if it is in none of them, the build raises.
@@ -82,11 +83,12 @@ def _compile(so: Path) -> None:
                     for src, obj in zip(SOURCES, objs)])
         log += _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
                       *map(str, objs)]])
+        so.with_suffix(".ptxas.txt").write_text(log.strip())
         os.replace(tmp, so)
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, ptxas=log.strip())
+    BUILD_INFO["seconds"] = time.perf_counter() - t0
 
 
 def library() -> ctypes.CDLL:
@@ -108,6 +110,9 @@ def library() -> ctypes.CDLL:
             lib.gmat_cuda_error_string.argtypes = [ctypes.c_int]
             lib.gmat_cuda_error_string.restype = ctypes.c_char_p
             BUILD_INFO["library"] = str(so)
+            report = so.with_suffix(".ptxas.txt")
+            BUILD_INFO["ptxas"] = (report.read_text() if report.exists()
+                                   else "")
             _lib = lib
     return _lib
 

@@ -29,16 +29,17 @@ from __future__ import annotations
 import ctypes
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 from . import _build
-from .ladder import _Band, _band_operands, _i8_quant_error_lsb, \
-    _row_col_operands, _rowcol_i8_plain, _tensors
+from .ladder import _band, _i8_quant_error_lsb, _row_col_operands, \
+    _rowcol_i8_plain, _tensors
 from .resize import f32_matmul, resample_matrix
 
 LAUNCHES = {"rungs_i8": 0, "rungs_bf16": 0}
 
-MAX_RUNGS = 8          # rungs per launch: the size of RungsArgs.rung
+MAX_RUNGS = 8          # rungs per launch: RungsArgs holds 2 * MAX_RUNGS planes
 
 
 @lru_cache(maxsize=256)
@@ -74,10 +75,11 @@ def resolve_quant(h: int, ch: int, sizes, method: str, quant: str) -> str:
 
 
 def fused_rungs_fits(h: int, w: int, sizes) -> bool:
-    """Can fused_rungs take this geometry?  The kernels walk any frame
-    size, so every ladder of even, positive rung sizes fits (the TPU's
-    answer depends on its VMEM budget)."""
-    return h > 0 and w > 0 and all(
+    """Can fused_rungs take this geometry?  The kernels walk any frame up
+    to MAX_SIDE samples a side (a tile record packs its source window in
+    16 bits), so every ladder of even, positive rung sizes from such a
+    frame fits (the TPU's answer depends on its VMEM budget)."""
+    return 0 < h <= MAX_SIDE and 0 < w <= MAX_SIDE and all(
         ow > 0 and oh > 0 and not (int(ow) | int(oh)) & 1 for ow, oh in sizes)
 
 
@@ -142,21 +144,142 @@ _PLAIN = {"i8": _rungs_i8_plain, "bf16": _rungs_bf16_plain}
 
 
 # ------------------------------------------------------- kernel launches
+#
+# The kernel (csrc/rungs.cu) runs one block per output tile, a th x tw
+# block of one plane of one rung of one frame.  Per plane the host pads
+# every band to two taps (a zero weight adds an exact zero), picks the
+# tile, and uploads once per geometry a record per tile (its tile row and
+# column and the source window it reads) and the band operands of every
+# tile row and tile column as 16-byte-aligned records.
+
+KOUT = 4                 # column stage: outputs per thread item (kOut)
+GROUP = 16               # row stage: source columns per thread item (kGroup)
+TILE = (32, 256)         # output rows x columns a plane's tile starts from
+SMEM_BUDGET = 40 * 1024  # shared memory the tile choice keeps a block under
+MAX_SIDE = 65535         # source samples a side: a window packs in 16 bits
+
+
+def _band2(mat: np.ndarray) -> tuple:
+    """(count, n_in) matrix -> first-tap index, the first index past the
+    window (at least one tap), and (count, 2) weights."""
+    lo, n, packed = _band(np.ascontiguousarray(mat))
+    if packed.shape[1] > 2:
+        raise ValueError(f"rung bands have at most 2 taps, got "
+                         f"{packed.shape[1]}")
+    w = np.zeros((mat.shape[0], 2), packed.dtype)
+    w[:, :packed.shape[1]] = packed
+    return lo, lo + np.maximum(n, 1), w
+
+
+def _windows(lo: np.ndarray, hi: np.ndarray, t: int) -> np.ndarray:
+    """(tiles, 2) source windows [lo, hi) of consecutive tiles of t
+    outputs."""
+    starts = np.arange(0, lo.size, t)
+    return np.stack([np.minimum.reduceat(lo, starts),
+                     np.maximum.reduceat(hi, starts)], axis=1)
+
+
+def tvals_bytes(planes: int, th: int, tpitch: int) -> int:
+    """A block's row-stage values, its shared memory (`tvals_bytes` in
+    csrc/rungs.cu)."""
+    return planes * th * tpitch * 2
+
+
+def launch_smem(ops: list) -> int:
+    """Dynamic shared memory of a launch over these rungs' operands."""
+    return max(r[k]["tvals"] for r in ops for k in "yc")
+
+
+def _tiling(rlo, rhi, clo, chi, planes: int) -> dict:
+    """The tile of one plane: TILE, halved (columns down to 32, then rows,
+    then columns) until its row-stage values fit SMEM_BUDGET; with the
+    source windows and the row-stage pitch the kernel uses (the window's
+    columns and the one after it, which a padded tap may read)."""
+    th, tw = TILE
+    while True:
+        rwin, cwin = _windows(rlo, rhi, th), _windows(clo, chi, tw)
+        nc = int((cwin[:, 1] - cwin[:, 0]).max())
+        tpitch = (nc + GROUP) // GROUP * GROUP
+        tvals = tvals_bytes(planes, th, tpitch)
+        if tvals <= SMEM_BUDGET or (th, tw) == (1, KOUT):
+            return dict(th=th, tw=tw, tpitch=tpitch, tvals=tvals, rwin=rwin,
+                        cwin=cwin)
+        if tw > 32:
+            tw //= 2
+        elif th > 1:
+            th //= 2
+        else:
+            tw //= 2
+
+
+def _bits(x: np.ndarray) -> np.ndarray:
+    """int32 words of weights: int8 values as they are, others as f32
+    bits."""
+    if np.issubdtype(x.dtype, np.integer):
+        return x.astype(np.int32)
+    return np.ascontiguousarray(x, np.float32).view(np.int32)
+
+
+def _records(lo, w, extra, t: int, win: np.ndarray) -> np.ndarray:
+    """(tiles, k, t) int32 records of a band cut into tiles of t outputs:
+    first taps, the two weights and `extra` columns (int32 words), padded
+    past the last output with the last tile's window start and zeros."""
+    pad = len(win) * t - lo.size
+    cols = [np.concatenate([lo, np.full(pad, win[-1, 0])]).astype(np.int32)]
+    for x in (w[:, 0], w[:, 1], *extra):
+        cols.append(np.concatenate([_bits(x), np.zeros(pad, np.int32)]))
+    return np.stack(cols).reshape(len(cols), len(win), t).transpose(1, 0, 2)
+
+
+def _plane_operands(kind: str, ah, aw, off, planes: int, device) -> dict:
+    """Kernel operands of one rung plane (luma, or the u/v pair): its
+    tiling, tile records, and row and column records."""
+    rlo, rhi, rw = _band2(ah)
+    clo, chi, cw = _band2(aw.T)
+    t = _tiling(rlo, rhi, clo, chi, planes)
+    rwin, cwin = t.pop("rwin"), t.pop("cwin")
+    if max(int(rwin.max()), int(cwin.max())) > MAX_SIDE:
+        raise ValueError(f"rung planes are at most {MAX_SIDE} samples a side")
+    ty, tx = np.meshgrid(np.arange(len(rwin)), np.arange(len(cwin)),
+                         indexing="ij")
+    span = [(win[:, 0] | (win[:, 1] - win[:, 0]) << 16).astype(np.uint32)
+            .view(np.int32) for win in (rwin, cwin)]
+    tiles = np.stack([ty.ravel(), tx.ravel(), span[0][ty.ravel()],
+                      span[1][tx.ravel()]], axis=1).astype(np.int32)
+    rows = _records(rlo, rw, (off if kind == "i8" else
+                              np.zeros(rlo.size, np.float32),), t["th"], rwin)
+    cols = _records(clo, cw, (), t["tw"], cwin)
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return dict(t, out_h=ah.shape[0], out_w=aw.shape[1],
+                tiles_y=len(rwin), tiles_x=len(cwin), rows=dev(rows),
+                cols=dev(cols), tiles=dev(tiles))
+
 
 @lru_cache(maxsize=32)
 def _kernel_operands(kind: str, geom: tuple, device: str) -> list:
-    """Band-form operands per rung, uploaded once per (geometry, device)."""
-    return [_band_operands(kind, m, device)
-            for m in _rung_operands(kind, geom)]
+    """Per rung, the operands of its luma plane ("y") and of its chroma
+    pair ("c"), uploaded once per (kind, geometry, device)."""
+    dev = torch.device(device)
+    out = []
+    for m in _rung_operands(kind, geom):
+        r = {}
+        for key, planes in (("y", 1), ("c", 2)):
+            r[key] = _plane_operands(kind, m["ah" + key], m["aw" + key],
+                                     m.get("off" + key), planes, dev)
+            r[key]["inv_s"] = m.get("inv_s" + key, 1.0)
+        out.append(r)
+    return out
 
 
-class _Rung(ctypes.Structure):
-    """Mirror of `struct Rung` in csrc/rungs.cu."""
-    _fields_ = ([(k, ctypes.c_void_p) for k in ("y", "u", "v")]
-                + [(k, _Band) for k in ("row_y", "col_y", "row_c", "col_c")]
-                + [(k, ctypes.c_void_p) for k in ("off_y", "off_c")]
-                + [(k, ctypes.c_int32) for k in ("out_h", "out_w")]
-                + [("inv_sy", ctypes.c_float), ("inv_sc", ctypes.c_float)])
+class _RungPlane(ctypes.Structure):
+    """Mirror of `struct RungPlane` in csrc/rungs.cu."""
+    _fields_ = ([("out", ctypes.c_void_p * 2)]
+                + [(k, ctypes.c_void_p) for k in ("rows", "cols", "tiles")]
+                + [(k, ctypes.c_int32) for k in ("out_h", "out_w", "th", "tw",
+                                                  "tpitch")]
+                + [("inv_s", ctypes.c_float)])
 
 
 class _RungsArgs(ctypes.Structure):
@@ -164,33 +287,73 @@ class _RungsArgs(ctypes.Structure):
     _fields_ = ([(k, ctypes.c_void_p) for k in ("y", "u", "v")]
                 + [(k, ctypes.c_int32) for k in ("n", "h", "w", "ch", "cw",
                                                   "n_rungs")]
-                + [("rung", _Rung * MAX_RUNGS)])
+                + [("tile0", ctypes.c_int32 * (2 * MAX_RUNGS + 1)),
+                   ("plane", _RungPlane * (2 * MAX_RUNGS))])
+
+
+def _plane_arg(ops: dict) -> _RungPlane:
+    return _RungPlane(
+        (ctypes.c_void_p * 2)(),
+        *(ops[k].data_ptr() for k in ("rows", "cols", "tiles")),
+        *(ops[k] for k in ("out_h", "out_w", "th", "tw", "tpitch")),
+        ops["inv_s"])
+
+
+def _args_template(h: int, w: int, ch: int, cw: int, ops: list) -> _RungsArgs:
+    """Kernel arguments for up to MAX_RUNGS rungs with every operand and
+    the tile counts in place; the planes, batch size and outputs are
+    patched in per call (`_patch`)."""
+    args = _RungsArgs(None, None, None, 0, h, w, ch, cw, len(ops))
+    tiles = 0
+    for slot, r in enumerate(ops):
+        for k, key in enumerate("yc"):
+            args.tile0[2 * slot + k] = tiles
+            args.plane[2 * slot + k] = _plane_arg(r[key])
+            tiles += r[key]["tiles_x"] * r[key]["tiles_y"]
+    args.tile0[2 * len(ops)] = tiles
+    return args
+
+
+def _patch(args: _RungsArgs, y, u, v, outs: list) -> _RungsArgs:
+    args.y, args.u, args.v, args.n = (y.data_ptr(), u.data_ptr(),
+                                      v.data_ptr(), y.shape[0])
+    plane = args.plane
+    for slot, (yo, uo, vo) in enumerate(outs):
+        plane[2 * slot].out[0] = yo.data_ptr()
+        out = plane[2 * slot + 1].out
+        out[0], out[1] = uo.data_ptr(), vo.data_ptr()
+    return args
 
 
 def _rungs_args(y, u, v, outs: list, ops: list) -> _RungsArgs:
     """Kernel arguments for up to MAX_RUNGS rungs: source pointers and
-    shapes, and per rung its output pointers, band operands and scales."""
-    def band(r, name):
-        lo, n, packed = r[name]
-        return _Band(lo.data_ptr(), n.data_ptr(), packed.data_ptr(),
-                     packed.shape[1])
+    shapes, and per rung plane its outputs, operands and tiling."""
+    return _patch(_args_template(y.shape[1], y.shape[2], u.shape[1],
+                                 u.shape[2], ops), y, u, v, outs)
 
-    args = _RungsArgs(y.data_ptr(), u.data_ptr(), v.data_ptr(), y.shape[0],
-                      y.shape[1], y.shape[2], u.shape[1], u.shape[2],
-                      len(outs))
-    for slot, (r, (yo, uo, vo)) in enumerate(zip(ops, outs)):
-        args.rung[slot] = _Rung(
-            yo.data_ptr(), uo.data_ptr(), vo.data_ptr(),
-            band(r, "row_y"), band(r, "col_y"), band(r, "row_c"),
-            band(r, "col_c"),
-            *(r[k].data_ptr() if k in r else None for k in ("off_y", "off_c")),
-            yo.shape[1], yo.shape[2], r.get("inv_sy", 1.0),
-            r.get("inv_sc", 1.0))
-    return args
+
+@lru_cache(maxsize=32)
+def _prepared(kind: str, geom: tuple, device: str) -> tuple:
+    """The operands of one geometry and its argument templates, one per
+    launch of MAX_RUNGS rungs (kept together: the templates hold the
+    operands' device pointers)."""
+    ops = _kernel_operands(kind, geom, device)
+    h, w, ch, cw = geom[:4]
+    return ops, [_args_template(h, w, ch, cw, ops[lo:lo + MAX_RUNGS])
+                 for lo in range(0, len(ops), MAX_RUNGS)]
 
 
 _ENTRIES = {"i8": ("rungs_i8", "gmat_rungs_i8"),
             "bf16": ("rungs_bf16", "gmat_rungs_bf16")}
+
+
+@lru_cache(maxsize=4)
+def _checked(lib) -> ctypes.CDLL:
+    """The kernel library, once its RungsArgs is known to match ours."""
+    if lib.gmat_rungs_args_size() != ctypes.sizeof(_RungsArgs):
+        raise RuntimeError("_RungsArgs does not match RungsArgs in "
+                           "csrc/rungs.cu")
+    return lib
 
 
 def _launch(kind: str, y, u, v, geom: tuple) -> list:
@@ -207,26 +370,23 @@ def _launch(kind: str, y, u, v, geom: tuple) -> list:
             raise ValueError(f"the {name} kernel takes contiguous planes")
     if not 0 < y.shape[0] <= 65535:
         raise ValueError(f"batch {y.shape[0]} outside 1..65535")
-    lib = _build.library()
-    if lib.gmat_rungs_args_size() != ctypes.sizeof(_RungsArgs):
-        raise RuntimeError("_RungsArgs does not match RungsArgs in "
-                           "csrc/rungs.cu")
-    ops = _kernel_operands(kind, geom, str(y.device))
-    n, sizes = y.shape[0], geom[4]
-    outs = [tuple(torch.empty(shape, dtype=torch.uint8, device=y.device)
-                  for shape in ((n, oh, ow), (n, oh // 2, ow // 2),
-                                (n, oh // 2, ow // 2)))
+    fn = getattr(_checked(_build.library()), entry)
+    _ops, templates = _prepared(kind, geom, str(y.device))
+    n, sizes, dev = y.shape[0], geom[4], y.device
+    outs = [(torch.empty((n, oh, ow), dtype=torch.uint8, device=dev),
+             torch.empty((n, oh // 2, ow // 2), dtype=torch.uint8, device=dev),
+             torch.empty((n, oh // 2, ow // 2), dtype=torch.uint8, device=dev))
             for ow, oh in sizes]
-    for lo in range(0, len(sizes), MAX_RUNGS):
-        args = _rungs_args(y, u, v, outs[lo:lo + MAX_RUNGS],
-                           ops[lo:lo + MAX_RUNGS])
-        with torch.cuda.device(y.device):
-            err = getattr(lib, entry)(ctypes.byref(args),
-                                      torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"{name} launch failed: "
-                               f"{_build.error_string(err)}")
-        LAUNCHES[name] += 1
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        for k, tmpl in enumerate(templates):
+            args = _patch(_RungsArgs.from_buffer_copy(tmpl), y, u, v,
+                          outs[k * MAX_RUNGS:(k + 1) * MAX_RUNGS])
+            err = fn(ctypes.byref(args), stream)
+            if err:
+                raise RuntimeError(f"{name} launch failed: "
+                                   f"{_build.error_string(err)}")
+            LAUNCHES[name] += 1
     return outs
 
 

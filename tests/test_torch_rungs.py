@@ -183,13 +183,23 @@ def test_operands_equal_jax(h, w, sizes):
 
 
 def test_fits_answers_what_the_port_takes():
-    """The kernel walks any frame size: every even ladder fits, 4K and 8K
-    included (the TPU's answer depended on its VMEM budget)."""
+    """The kernel walks any frame up to 65535 samples a side: every even
+    ladder from such a frame fits, 4K and 8K included (the TPU's answer
+    depended on its VMEM budget); a wider or taller frame does not, since
+    fused_rungs refuses its tile windows."""
     ladder_4k = ((1920, 1080), (1280, 720), (960, 540))
     assert rungs.fused_rungs_fits(2160, 3840, ladder_4k)
     assert jpk.fused_rungs_fits(2160, 3840, ladder_4k)
     assert rungs.fused_rungs_fits(4320, 7680, ladder_4k)
+    assert rungs.fused_rungs_fits(65535, 65535, ladder_4k)
     assert not rungs.fused_rungs_fits(1080, 1920, ((1281, 720),))
+    for h, w in ((65536, 1920), (1080, 65536)):
+        assert not rungs.fused_rungs_fits(h, w, ladder_4k)
+    aw = np.zeros((65537, 2), np.float32)    # (in, out): a 65537-wide window
+    aw[0, 0] = aw[65536, 1] = 1.0
+    with pytest.raises(ValueError, match="65535 samples a side"):
+        rungs._plane_operands("bf16", np.eye(4, dtype=np.float32), aw, None,
+                              1, "cpu")
 
 
 def test_no_fallback_off_the_cpu(rng):
@@ -212,118 +222,230 @@ def test_reference_flag_runs_plain_version(rng):
         np.testing.assert_array_equal(x, y)
 
 
+def _outs(n, sizes):
+    return [tuple(torch.empty(s, dtype=torch.uint8)
+                  for s in ((n, oh, ow), (n, oh // 2, ow // 2),
+                            (n, oh // 2, ow // 2))) for ow, oh in sizes]
+
+
 def test_args_struct_layout_and_split(rng):
-    """The ctypes mirror has the C layout (8-byte pointers, 32-byte Band,
-    184-byte Rung) and a ladder longer than MAX_RUNGS is cut into
-    launches of MAX_RUNGS rungs, each rung in its slot."""
+    """The ctypes mirror has the C layout (8-byte pointers, 64-byte
+    RungPlane, planes from byte 120) and a ladder longer than MAX_RUNGS is
+    cut into launches of MAX_RUNGS rungs, each rung's luma and chroma
+    plane in its slot with its tile counts; the cached template patched
+    per call equals the arguments built afresh."""
     assert ctypes.sizeof(ladder._Band) == 32
-    assert ctypes.sizeof(rungs._Rung) == 184
-    assert ctypes.sizeof(rungs._RungsArgs) == 48 + rungs.MAX_RUNGS * 184
+    assert ctypes.sizeof(rungs._RungPlane) == 64
+    assert rungs._RungPlane.out_h.offset == 40
+    assert rungs._RungPlane.inv_s.offset == 60
+    assert rungs._RungsArgs.tile0.offset == 48
+    assert rungs._RungsArgs.plane.offset == 120
+    assert ctypes.sizeof(rungs._RungsArgs) == 120 + 2 * rungs.MAX_RUNGS * 64
     n, h, w = 1, 24, 40
     sizes = tuple((2 * k + 2, 2 * k + 4) for k in range(10))
     y, u, v = (torch.from_numpy(p) for p in _data(rng, n, h, w))
-    ops = rungs._kernel_operands("i8", (h, w, h // 2, w // 2, sizes,
-                                        "bilinear"), "cpu")
-    outs = [tuple(torch.empty(s, dtype=torch.uint8)
-                  for s in ((n, oh, ow), (n, oh // 2, ow // 2),
-                            (n, oh // 2, ow // 2))) for ow, oh in sizes]
+    geom = (h, w, h // 2, w // 2, sizes, "bilinear")
+    ops = rungs._kernel_operands("i8", geom, "cpu")
+    _ops, templates = rungs._prepared("i8", geom, "cpu")
+    assert _ops is ops and len(templates) == 2
+    outs = _outs(n, sizes)
     for lo in range(0, len(sizes), rungs.MAX_RUNGS):
         args = rungs._rungs_args(y, u, v, outs[lo:lo + rungs.MAX_RUNGS],
                                  ops[lo:lo + rungs.MAX_RUNGS])
+        patched = rungs._patch(rungs._RungsArgs.from_buffer_copy(
+            templates[lo // rungs.MAX_RUNGS]), y, u, v,
+            outs[lo:lo + rungs.MAX_RUNGS])
+        assert bytes(patched) == bytes(args)
         assert args.n_rungs == min(rungs.MAX_RUNGS, len(sizes) - lo)
         assert (args.n, args.h, args.w, args.ch, args.cw) == (n, h, w, h // 2,
                                                               w // 2)
+        assert args.tile0[0] == 0
         for slot in range(args.n_rungs):
-            r, (yo, uo, vo) = args.rung[slot], outs[lo + slot]
-            assert (r.y, r.u, r.v) == (yo.data_ptr(), uo.data_ptr(),
-                                       vo.data_ptr())
-            assert (r.out_w, r.out_h) == sizes[lo + slot]
-            lo_t, _n, packed = ops[lo + slot]["row_c"]
-            assert r.row_c.lo == lo_t.data_ptr()
-            assert r.row_c.stride == packed.shape[1]
-            assert r.off_y == ops[lo + slot]["off_y"].data_ptr()
+            (yo, uo, vo), r = outs[lo + slot], ops[lo + slot]
+            py, pc = args.plane[2 * slot], args.plane[2 * slot + 1]
+            assert py.out[0] == yo.data_ptr()
+            assert (pc.out[0], pc.out[1]) == (uo.data_ptr(), vo.data_ptr())
+            assert (py.out_w, py.out_h) == sizes[lo + slot]
+            assert (pc.out_w, pc.out_h) == (sizes[lo + slot][0] // 2,
+                                            sizes[lo + slot][1] // 2)
+            assert pc.rows == r["c"]["rows"].data_ptr()
+            assert py.cols == r["y"]["cols"].data_ptr()
+            assert py.tiles == r["y"]["tiles"].data_ptr()
+            for k, p in enumerate((py, pc)):
+                d = r["yc"[k]]
+                ty, tx = d["tiles_y"], d["tiles_x"]
+                assert (args.tile0[2 * slot + k + 1] - args.tile0[2 * slot + k]
+                        == tx * ty == len(d["tiles"]))
+                assert p.th * ty >= p.out_h > p.th * (ty - 1)
+                assert p.tw * tx >= p.out_w > p.tw * (tx - 1)
+                assert p.tw >= rungs.KOUT and not p.tw & (p.tw - 1)
+                assert p.tpitch % rungs.GROUP == 0
+                assert tuple(d["rows"].shape) == (ty, 4, p.th)
+                assert tuple(d["cols"].shape) == (tx, 3, p.tw)
+                assert p.inv_s == np.float32(d["inv_s"])
+
+
+def _offset_planes(rng, n, h, w, offset):
+    """Random contiguous planes whose data pointers sit `offset` bytes past
+    an allocation, so staged rows start at every 16-byte phase."""
+    planes = []
+    for p in _data(rng, n, h, w):
+        buf = torch.empty(p.size + offset, dtype=torch.uint8)
+        t = buf[offset:].view(p.shape)
+        t.copy_(torch.from_numpy(p))
+        planes.append(t)
+    return planes
 
 
 def _kernel_walk(kind, planes, geom):
-    """numpy walk of the CUDA kernel's loops: the flat job table per frame
-    (rung by rung, luma samples then chroma positions, each writing u and
-    v), and per job the band windows of its operands."""
+    """numpy walk of the CUDA kernel over the arguments `_rungs_args`
+    builds, reading every operand through its pointer: one block per tile
+    of every frame, its plane from tile0 and its record; the row stage
+    once per (output row, source column) of the tile's window, in items
+    of GROUP columns read as whole 32-bit words of the plane tensor
+    (clamped into it), into a shared buffer of NaNs; and the column stage
+    in items of KOUT outputs of one row.  Returns the outputs and how many
+    times each sample was written."""
     h, w, ch, cw, sizes, _method = geom
-    ops = rungs._kernel_operands(kind, geom, "cpu")
     n = planes[0].shape[0]
-    outs = [[np.full(s, -1, np.int64) for s in ((n, oh, ow),
-                                                (n, oh // 2, ow // 2),
-                                                (n, oh // 2, ow // 2))]
-            for ow, oh in sizes]
+    ops = rungs._kernel_operands(kind, geom, "cpu")
+    outs = _outs(n, sizes)
+    mem = {}            # data pointer -> flat numpy view
+    for t in [*planes, *(p for r in outs for p in r)] + [
+            v for r in ops for d in r.values() for v in d.values()
+            if isinstance(v, torch.Tensor)]:
+        mem[t.data_ptr()] = t.reshape(-1).numpy()
+    writes = {t.data_ptr(): np.zeros(t.numel(), int) for r in outs for t in r}
 
     def bf16(x):
-        return float(torch.tensor(float(x), dtype=torch.float32)
-                     .to(torch.bfloat16))
+        return torch.from_numpy(np.asarray(x, np.float32)).to(
+            torch.bfloat16).float().numpy()
 
-    def band(t):
-        return tuple(a.float().numpy() if a.dtype == torch.bfloat16
-                     else a.numpy() for a in t)
+    def read(ptr, at, count):
+        """`count` bytes from address `at` of the plane tensor at `ptr`,
+        as the kernel reads them: 32-bit words, each clamped into the
+        tensor's first and last words."""
+        src = mem[ptr]
+        q0 = at & ~3
+        words = np.clip(q0 + 4 * np.arange((at - q0 + count + 3) // 4),
+                        ptr & ~3, (ptr + src.size - 1) & ~3)
+        byte = (words[:, None] + np.arange(4)[None, :]).ravel() - ptr
+        # bytes of a clamped word outside the tensor: any value
+        got = np.where((byte >= 0) & (byte < src.size),
+                       src[np.clip(byte, 0, src.size - 1)], 0x5A)
+        return got[at - q0:at - q0 + count].astype(np.int64)
 
-    def px(x, row, col, i, j, inv_s):
-        (rlo, rn, rw), (clo, cn, cwt) = row, col
-        acc = np.float32(0)
-        for b in range(int(cn[j])):
-            col_j = int(clo[j]) + b
-            rows = range(int(rlo[i]), int(rlo[i]) + int(rn[i]))
+    def tile(a, p, rec, f, chroma):
+        srcs = (a.u, a.v) if chroma else (a.y,)
+        height, width = (a.ch, a.cw) if chroma else (a.h, a.w)
+        ty, tx = int(rec[0]), int(rec[1])
+        r0, nr = int(rec[2]) & 0xffff, (int(rec[2]) & 0xffffffff) >> 16
+        c0, nc = int(rec[3]) & 0xffff, (int(rec[3]) & 0xffffffff) >> 16
+        i0, j0 = ty * p.th, tx * p.tw
+        th, tw = min(p.th, p.out_h - i0), min(p.tw, p.out_w - j0)
+        ng = (nc + rungs.GROUP) // rungs.GROUP
+        assert ng * rungs.GROUP <= p.tpitch
+        assert (rungs.tvals_bytes(len(srcs), p.th, p.tpitch)
+                <= rungs.SMEM_BUDGET or (p.th, p.tw) == (1, rungs.KOUT))
+        rows = mem[p.rows].reshape(-1, 4, p.th)[ty]
+        cols = mem[p.cols].reshape(-1, 3, p.tw)[tx]
+        first = (f * height + r0) * width + c0
+        # row stage: unwritten values stay NaN, so reading one shows
+        tv = np.full((len(srcs), p.th, p.tpitch), np.nan, np.float32)
+        for pl, i in np.ndindex(len(srcs), th):
+            k0 = int(rows[0, i]) - r0
+            # every needed row lies in the window or is the row after it
+            assert 0 <= k0 and k0 + 1 <= nr
+            x = [read(srcs[pl], srcs[pl] + first + (k0 + tap) * width,
+                      rungs.GROUP * ng) for tap in range(2)]
             if kind == "i8":
-                t = sum(int(rw[i, a]) * (int(x[r, col_j]) - 128)
-                        for a, r in enumerate(rows))
-                tb = bf16(np.float32(t) * np.float32(inv_s))
+                t = (int(rows[1, i]) * (x[0] - 128)
+                     + int(rows[2, i]) * (x[1] - 128))
+                val = t.astype(np.float32) * np.float32(p.inv_s)
             else:
-                t = np.float32(0)
-                for a, r in enumerate(rows):
-                    t = np.float32(t + np.float32(rw[i, a])
-                                   * np.float32(x[r, col_j]))
-                tb = bf16(t)
-            acc = np.float32(acc + np.float32(tb) * np.float32(cwt[j, b]))
-        return acc
+                wr = rows[1:3, i].view(np.float32)
+                val = (wr[0] * x[0].astype(np.float32)
+                       + wr[1] * x[1].astype(np.float32))
+            tv[pl, i, :rungs.GROUP * ng] = bf16(val)
+        # column stage: items of KOUT outputs, each a row's KOUT columns
+        lo = cols[0] - c0
+        assert (lo >= 0).all() and (lo + 1 < rungs.GROUP * ng).all()
+        wc = cols[1:3].view(np.float32)
+        off = rows[3].view(np.float32)
+        for pl, i in np.ndindex(len(srcs), th):
+            o = tv[pl, i, lo] * wc[0] + tv[pl, i, lo + 1] * wc[1]
+            if kind == "i8":
+                o = o + off[i]
+            assert np.isfinite(o).all()
+            q = np.clip(np.rint(o), 0, 255)[:tw]    # rint: half to even
+            at = (f * p.out_h + i0 + i) * p.out_w + j0
+            mem[p.out[pl]][at:at + tw] = q
+            writes[p.out[pl]][at:at + tw] += 1
 
-    def u8(o):
-        return int(min(max(np.rint(o), 0), 255))   # rint: half to even
-
-    jobs = [oh * ow + (oh // 2) * (ow // 2) for ow, oh in sizes]
-    for f in range(n):
-        for job in range(sum(jobs)):
-            r, rem = 0, job
-            while rem >= jobs[r]:
-                rem -= jobs[r]
-                r += 1
-            (ow, oh), g = sizes[r], ops[r]
-            if rem < oh * ow:
-                i, j = divmod(rem, ow)
-                o = px(planes[0][f], band(g["row_y"]), band(g["col_y"]), i, j,
-                       g.get("inv_sy", 1.0))
-                if kind == "i8":
-                    o = np.float32(o + g["off_y"][i].item())
-                outs[r][0][f, i, j] = u8(o)
-            else:
-                i, j = divmod(rem - oh * ow, ow // 2)
-                for p in (1, 2):
-                    o = px(planes[p][f], band(g["row_c"]), band(g["col_c"]),
-                           i, j, g.get("inv_sc", 1.0))
-                    if kind == "i8":
-                        o = np.float32(o + g["off_c"][i].item())
-                    outs[r][p][f, i, j] = u8(o)
-    return outs
+    for lo in range(0, len(sizes), rungs.MAX_RUNGS):
+        a = rungs._rungs_args(*planes, outs[lo:lo + rungs.MAX_RUNGS],
+                              ops[lo:lo + rungs.MAX_RUNGS])
+        for f, bx in np.ndindex(a.n, a.tile0[2 * a.n_rungs]):
+            pi = 0
+            while bx >= a.tile0[pi + 1]:
+                pi += 1
+            p = a.plane[pi]
+            rec = mem[p.tiles].reshape(-1, 4)[bx - a.tile0[pi]]
+            tile(a, p, rec, f, pi & 1)
+    return ([tuple(t.numpy() for t in r) for r in outs],
+            [tuple(writes[t.data_ptr()].reshape(t.shape) for t in r)
+             for r in outs])
 
 
+@pytest.fixture
+def tiling():
+    """Set the tile and budget the host picks tiles from; the operand
+    caches are cleared around the test."""
+    saved = rungs.TILE, rungs.SMEM_BUDGET
+
+    def use(tile, budget):
+        rungs.TILE, rungs.SMEM_BUDGET = tile, budget
+        rungs._kernel_operands.cache_clear()
+        rungs._prepared.cache_clear()
+    yield use
+    use(*saved)
+
+
+_WALKS = {   # name: (n, h, w, sizes, method, tile, smem budget, ptr offset)
+    # the geometry of the flat job table's walk, at the default tile
+    "today": (1, 20, 36, ((12, 8), (24, 14), (4, 2)), "bilinear",
+              rungs.TILE, rungs.SMEM_BUDGET, 0),
+    # a width that is not a multiple of 16 or of the tile (chroma 35 and
+    # 11 wide), misaligned rows, and a budget that shrinks the tile
+    "ragged": (2, 34, 70, ((40, 18), (22, 10)), "bilinear", (8, 16), 600,
+               3),
+    "upscale": (1, 14, 22, ((48, 30), (24, 16)), "bilinear", (8, 16),
+                40960, 5),
+    "nearest": (2, 24, 48, ((32, 12), (16, 24)), "nearest", (4, 16), 40960,
+                1),
+    # ten rungs: two launches, split at MAX_RUNGS
+    "max_rungs": (1, 24, 40, tuple((2 * k + 2, 2 * k + 4) for k in range(10)),
+                  "bilinear", (4, 8), 40960, 7),
+}
+
+
+@pytest.mark.parametrize("case", list(_WALKS))
 @pytest.mark.parametrize("kind", ["i8", "bf16"])
-def test_kernel_walk_matches_plain(rng, kind):
-    """The kernel's job table writes every sample of every rung once, and
-    its band-form walk gives the plain version's numbers exactly."""
-    n, h, w = 1, 20, 36
-    sizes = ((12, 8), (24, 14), (4, 2))
-    planes = _data(rng, n, h, w)
-    geom = (h, w, h // 2, w // 2, sizes, "bilinear")
-    walked = _kernel_walk(kind, planes, geom)
-    want = rungs._PLAIN[kind](*(torch.from_numpy(p) for p in planes),
+def test_kernel_walk_matches_plain(rng, tiling, kind, case):
+    """The tile schedule writes every sample of every rung and plane
+    exactly once, and its walk gives the plain version's numbers
+    exactly."""
+    n, h, w, sizes, method, tile, budget, offset = _WALKS[case]
+    tiling(tile, budget)
+    planes = _offset_planes(rng, n, h, w, offset)
+    geom = (h, w, h // 2, w // 2, sizes, method)
+    walked, writes = _kernel_walk(kind, planes, geom)
+    if case == "ragged":    # the budget halved the tile
+        assert any(d["th"] * d["tw"] < 8 * 16 for r in rungs._kernel_operands(
+            kind, geom, "cpu") for d in r.values())
+    want = rungs._PLAIN[kind](*planes,
                               rungs._plain_operands(kind, geom, "cpu"))
-    for got_r, want_r in zip(walked, want):
-        for got_p, want_p in zip(got_r, want_r):
-            assert (got_p >= 0).all()
+    for got_r, want_r, wr in zip(walked, want, writes):
+        for got_p, want_p, wp in zip(got_r, want_r, wr):
+            assert (wp == 1).all()
             np.testing.assert_array_equal(got_p, want_p.numpy())
