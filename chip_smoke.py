@@ -17,6 +17,8 @@ on the card:
                    the exact path, a crop + smooth + flip case
   ladder_bf16      K2 (ladder_bf16): use_kernel="bf16", yuv420p10, yuv444p
   ladder_wide      K3 (ladder_i8 at 8K) and a 5760x3240 frame
+  ladder_ragged    ladder_i8 and ladder_bf16 on 4 x 998x562 -> 225x223: no
+                   source or output width a multiple of 4 or of the tile
   wire_lane        K6 (ladder_nv12), K7 (ladder_nv12_i8), K8 (ladder_p010)
                    through the wire-format entry points, each against its
                    plain version and its planar twin; K7 on 8 x 8K NV12
@@ -36,8 +38,10 @@ on the card:
   smart_decode     FrameExtractor, FrameSelect and extract_to_torch on a
                    small libx264 clip, where libavcodec exists
   timing           CUDA-event medians: kernel, plain version, library call,
-                   separate-op path; for the rung kernels also GB/s, the
-                   wrapper's host time, tiles and ptxas registers
+                   separate-op path; for the planar ladder and rung kernels
+                   also the wrapper's device and host time and the ptxas
+                   registers and spills of the instance timed; for the rung
+                   kernels GB/s and tiles
 
 Each phase prints one JSON line.  Then come the card's name and power
 limit (nvidia-smi), the kernels line, and last
@@ -82,6 +86,8 @@ LADDER_4K = ((1920, 1080), (1280, 720), (960, 540))
 # JAX tests' ratios, and the plain bf16 version is 2 LSB off)
 RAGGED_SRC, RAGGED_SIZES = (4, 562, 1000), ((640, 360), (426, 240))
 LSB_RAGGED_EXACT = 3
+# a ragged planar ladder: 998x562 (chroma 499x281) -> 225x223 (W x H)
+RAGGED_LADDER_SRC, RAGGED_LADDER_OUT = (4, 562, 998), (223, 225)
 # rung kernels (u8 outputs, in LSBs): against the plain version 0 (the
 # kernel sums in the plain version's order), against the exact resize 3
 # for int8 rows and 1 for bf16 (test_pallas.py:268-294)
@@ -231,9 +237,16 @@ def ptxas_usage(log: str) -> dict:
     return usage
 
 
-def rung_ptxas(usage: dict, kind: str) -> dict:
-    """ptxas usage of rungs_kernel<kI8> for kind "i8" or "bf16"."""
-    tag = "rungs_kernelILb1E" if kind == "i8" else "rungs_kernelILb0E"
+def kernel_ptxas(usage: dict, kernel: str, kind: str, dtype=None,
+                 taps=None) -> dict:
+    """ptxas usage of one kernel instance: rungs_kernel<kI8>, or
+    ladder_kernel<T, kI8, kTaps> for its sample dtype and tap count."""
+    tag = f"{kernel}I"
+    if dtype is not None:
+        tag += "h" if dtype == torch.uint8 else "t"
+    tag += f"Lb{int(kind == 'i8')}E"
+    if taps is not None:
+        tag += f"Li{taps}E"
     found = [u for name, u in usage.items() if tag in name]
     check(len(found) == 1, f"ptxas log: {len(found)} entries for {tag}")
     return found[0]
@@ -755,6 +768,28 @@ def main() -> None:
          max_lsb_vs_plain_5760x3240=err_57, shape_8k=list(k3.shape))
     del p57, k3, k57
 
+    # ------------------------- ladder_i8 and ladder_bf16 on ragged widths
+    n_r, h_r, w_r = RAGGED_LADDER_SRC
+    oh_r, ow_r = RAGGED_LADDER_OUT
+    p_r = make(n_r, h_r, w_r, h_r // 2, w_r // 2)
+    ragged_ladder = {}
+    for kname, fn, tol in (("ladder_i8", ladder.fused_ladder_i8, LSB_I8),
+                           ("ladder_bf16", ladder.fused_ladder, LSB_BF16)):
+        zero_counts(ladder)
+        got = fn(*p_r, oh_r, ow_r)
+        torch.cuda.synchronize()
+        counts = dict(ladder.LAUNCHES)
+        check(counts == want_counts(ladder, **{kname: 1}),
+              f"ragged {kname} launches {counts}")
+        check(tuple(got.shape) == (n_r, 3, oh_r, ow_r)
+              and bool(torch.isfinite(got).all()), f"ragged {kname} output")
+        err = lsb(got, fn(*p_r, oh_r, ow_r, reference=True))
+        check(err <= tol, f"ragged {kname} vs plain: {err} LSB")
+        ragged_ladder[kname] = {"launches": counts, "max_lsb_vs_plain": err}
+    emit("ladder_ragged", source=[n_r, h_r, w_r],
+         output=[oh_r, ow_r], **ragged_ladder)
+    del p_r, got
+
     # ----------------------------------------- wire lane (K6, K7, K8)
     def p010_wire(planes):
         """P010 wire of 10-bit planes: samples << 6, U,V interleaved."""
@@ -923,16 +958,25 @@ def main() -> None:
     p8kb = make(n8, 4320, 7680, 2160, 3840)
     geom8k = (4320, 7680, 2160, 3840, OUT, OUT, "bilinear", None, None,
               None)
-    cases = {   # name: (kind, geometry, constants, two input buffers)
-        "ladder_i8": ("i8", geom, c8, (yuv0, yuv1)),
-        "ladder_bf16": ("bf16", geom, c8, (yuv0, yuv1)),
-        "ladder_bf16_u16": ("bf16", geom, c10, (p10, p10b)),
-        "ladder_i8_8k": ("i8", geom8k, c8, (p8k, p8kb)),
+    usage = ptxas_usage(_build.BUILD_INFO.get("ptxas", ""))
+    cases = {   # name: (kind, geometry, constants, two input buffers, wrapper)
+        "ladder_i8": ("i8", geom, c8, (yuv0, yuv1),
+                      lambda *p: ladder.fused_ladder_i8(*p, OUT, OUT)),
+        "ladder_bf16": ("bf16", geom, c8, (yuv0, yuv1),
+                        lambda *p: ladder.fused_ladder(*p, OUT, OUT)),
+        "ladder_bf16_u16": ("bf16", geom, c10, (p10, p10b),
+                            lambda *p: ladder.fused_ladder_u16(
+                                *p, OUT, OUT, bits=10)),
+        "ladder_i8_8k": ("i8", geom8k, c8, (p8k, p8kb),
+                         lambda *p: ladder.fused_ladder_i8(*p, OUT, OUT)),
     }
     timing = {}
-    for case, (kind, g, c, pair) in cases.items():
+    for case, (kind, g, c, pair, wrapper) in cases.items():
         go = [raw_launcher(ladder, kind, *p, g, c) for p in pair]
         ms, runs, host_ms = event_ms(lambda i: go[i % 2]())
+        wrapper_ms, _, wrapper_host_ms = event_ms(
+            lambda i: wrapper(*pair[i % 2]))
+        taps = ladder._kernel_operands(kind, g, "cuda:0")["taps"]
         pops = [ladder._plain_operands(kind, g, "cuda:0")]
         plain_ms, _, _ = event_ms(
             lambda i: ladder._PLAIN[kind](*pair[i % 2], pops[0], c),
@@ -940,10 +984,14 @@ def main() -> None:
         n = pair[0][0].shape[0]
         b = bound(ladder, kind, g, n, pair[0][0].element_size())
         timing[case] = {"ms": ms, "runs_ms": runs, "host_ms": host_ms,
+                        "wrapper_ms": wrapper_ms,
+                        "wrapper_host_ms": wrapper_host_ms,
                         "plain_ms": plain_ms,
                         "frames": n, "frames_per_s": n / ms * 1e3,
-                        "launches_per_batch": 1,
-                        "bound_share": b["bound_ms"] / ms, **b}
+                        "launches_per_batch": 1, "taps": taps,
+                        "bound_share": b["bound_ms"] / ms,
+                        "ptxas": kernel_ptxas(usage, "ladder_kernel", kind,
+                                              pair[0][0].dtype, taps), **b}
     geom_w = (H, W, OUT, OUT, "bilinear")
     pair_nv12, pair_p010 = (nv12, pack_nv12(bufs[1])), (p010, p010_wire(p10b))
     wire_cases = {   # name: (kind, constants, two wire batches)
@@ -972,7 +1020,6 @@ def main() -> None:
         "rungs_bf16": ("bf16", geom_r, rung_src),
         "rungs_i8_4k": ("i8", geom_4k, (p4k, p4kb)),
     }
-    usage = ptxas_usage(_build.BUILD_INFO.get("ptxas", ""))
     for case, (kind, g, pair) in rung_cases.items():
         sizes = g[4]
         go = [rung_launcher(rungs, kind, *p, g) for p in pair]
@@ -1000,7 +1047,7 @@ def main() -> None:
                         "launches_per_batch": 1,
                         "bound_share": b["bound_ms"] / ms,
                         "effective_GBps": b["bytes"] / ms / 1e6,
-                        "ptxas": rung_ptxas(usage, kind),
+                        "ptxas": kernel_ptxas(usage, "rungs_kernel", kind),
                         **rung_tiling(rungs, kind, g), **b}
     e2e_ms, e2e_runs, e2e_host = event_ms(
         lambda i: fused.preprocess_nchw(bufs[i % 2], OUT, OUT))

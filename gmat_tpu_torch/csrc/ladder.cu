@@ -3,11 +3,12 @@
 //   -> (N, 3, out_h, out_w) f32 NCHW, one launch per batch.
 //
 // Replaces (gmat_tpu/ops/pallas_kernels.py):
-//   K1 _ladder_kernel_i8          (int8 row stage)        -> ladder_kernel<uint8_t, true>
+//   K1 _ladder_kernel_i8          (int8 row stage)        -> ladder_kernel<uint8_t, true, *>
 //   K3 _ladder_kernel_i8_chunked  (K1 over column chunks) -> the same kernel: it walks
 //                                 any width, so 8K frames need no chunked variant
 //   K2 _ladder_kernel             (bf16 row stage, u8 or lsb-aligned u16 samples)
-//                                 -> ladder_kernel<uint8_t|uint16_t, false>
+//                                 -> ladder_kernel<uint8_t|uint16_t, false, *>
+//   (* the window instance: 2 or 4 taps, or 0 for the band walk)
 //   K6 _ladder_nv12_kernel        (NV12 wire, bf16 rows)  -> wire_kernel<uint8_t, false>
 //   K7 _ladder_nv12_kernel_i8     (NV12 wire, int8 rows)  -> wire_kernel<uint8_t, true>
 //   K8 _ladder_p010_kernel        (P010 wire, bf16 rows)  -> wire_kernel<uint16_t, false>
@@ -53,8 +54,38 @@
 // needs no shared memory, and handles any frame size, crop, smooth or flip the
 // host folds into the matrices.  A warp covers 32 neighbouring output columns of
 // one row, so its row windows agree and its output stores are coalesced.
-// Later work: stage the touched rows in shared memory with cp.async / TMA, and put
-// the int8 row stage on the tensor cores for wide (area, smoothed) bands.
+//
+// The planar kernel (K1/K3, K2), redesigned.  Times per 64 x 1080p -> 224^2 batch
+// (i8 / bf16 u8 / bf16 u16) and per 8 x 8K batch, from scratch scripts timing
+// copies of this file as chip_smoke.py times it, on an H100 80GB HBM3 at 700 W;
+// PERF.md keeps the runs.
+//  0. It walked each pixel's band records with loops of unknown trip count, 12
+//     single-sample loads and ~33 record loads per pixel, each sample load waiting
+//     on its record load: 0.105 / 0.110 / 0.124 ms, 8K 0.027 ms.  Taken apart,
+//     unrolling the loops for 2 taps alone gave 0.056 / 0.055 / 0.092: the
+//     dependent chain set the time, then the samples.
+//  1. Windows of known width.  The host pads every window of a geometry to the
+//     same 2 or 4 taps with zero weights, inside its plane (a window at the
+//     plane's end moves left), and picks the instance from the widest window:
+//     ladder_kernel<T, kI8, 2> (bilinear, nearest), <.., 4> (bicubic, area to
+//     ~3:1), <.., 0> the band walk above (lanczos3, fused smooth, wider area).
+//     The loops unroll, and a pixel's 3 x taps^2 loads are in flight together.
+//  2. Records: per output row one record (first row of luma and chroma, weights,
+//     K1's offsets and -128 * weight sums) read by a warp at one address; per
+//     output column one coalesced record (first columns, weights), shared by u
+//     and v.  32-bit offsets inside a frame.
+//  3. Loads: a 2-tap window takes one load per sample (two aligned words and a
+//     funnel shift per row were 4-9% slower: the same two loads and more ALU); a
+//     u8 window of 3-4 taps takes two aligned 32-bit words a row, funnel-shifted,
+//     and only the last frame's blocks clamp the second word to the tensor.
+//  4. One pixel a thread.  Threads that kept their column records for 2, 4 or 8
+//     rows were slower (4 rows 0.062 / 0.060 / 0.093, with the loads of all rows
+//     first or not): fewer record loads, but fewer blocks in flight.
+//  With 1-4: 0.053 / 0.053 / 0.089 ms (84% / 84% / 87% of the bound), 8K 0.024
+//  (69%), 32 registers, no spills, the same bits as before.  What is left at
+//  1080p is the sample loads; at 8K each luma pair sits in a sector of its own.
+// Later work: put the int8 row stage on the tensor cores for wide (area,
+// smoothed) bands, and give the wire kernels the same design.
 
 #include <cstddef>
 #include <cstdint>
@@ -75,10 +106,19 @@ struct LadderArgs {
   const void* u;
   const void* v;
   float* out;
-  Band row_y, col_y, row_c, col_c;
+  Band row_y, col_y, row_c, col_c;  // taps == 0: the band walk reads these
   const float* off_y;  // K1 only: 128 * rowsum(Ah_q) / s per output row
   const float* off_c;
+  // taps 2 or 4: every window padded to `taps` samples inside its plane.
+  // rows: (out_h, 8 + 2 * taps) per output row: luma and chroma first row, off_y
+  //   and off_c (f32 bits, K1), luma then chroma row weights (int8 values, or bf16
+  //   values as f32 bits), then (K1) -128 * the sum of each weight row.
+  // cols: (2 + 2 * taps, out_w): luma and chroma first column, luma then chroma
+  //   column weights (f32 bits).
+  const int32_t* rows;
+  const int32_t* cols;
   int32_t n, h, w, ch, cw, out_h, out_w;
+  int32_t taps;          // 2 or 4: window instances; 0: the band walk
   float inv_sy, inv_sc;  // K1 only: f32(1 / s)
   float mat[9];          // yuv2rgb_matrix, row major
   float low, mid, maxv, inv_norm;
@@ -210,12 +250,134 @@ __device__ __forceinline__ void store_rgb(const Args& a, float* o, size_t plane,
   }
 }
 
+// ---------------------------------------------------------- planar ladder kernel
+constexpr int kBlockX = 32;  // output columns of a block: one per thread of a warp
+constexpr int kBlockY = 8;   // output rows of a block: one per warp
+
+// x[a][b]: sample (a, b) of the kTaps x kTaps window whose first sample is at p in
+// rows `width` samples apart.  kWords: per row two aligned 32-bit words
+// funnel-shifted, so a u8 window of up to 4 samples takes two loads; kGuard clamps
+// the second word to `last`, the plane tensor's last word (only the second can
+// pass its end: the first holds the window's first sample).  Otherwise one load
+// per sample.
+template <typename T, int kTaps, bool kWords, bool kGuard>
+__device__ __forceinline__ void load_window(const T* __restrict__ p, int width,
+                                            uintptr_t last, uint32_t (&x)[kTaps][kTaps]) {
+#pragma unroll
+  for (int a = 0; a < kTaps; ++a) {
+    const T* r = p + a * width;
+    if (kWords) {
+      const uintptr_t q = (uintptr_t)r & ~(uintptr_t)3;
+      const uintptr_t q1 = kGuard && q + 4 > last ? last : q + 4;
+      const uint32_t s = __funnelshift_r(__ldg(reinterpret_cast<const uint32_t*>(q)),
+                                         __ldg(reinterpret_cast<const uint32_t*>(q1)),
+                                         8 * (uint32_t)((uintptr_t)r & 3));
+#pragma unroll
+      for (int b = 0; b < kTaps; ++b) x[a][b] = (s >> (8 * b)) & 0xffu;
+    } else {
+#pragma unroll
+      for (int b = 0; b < kTaps; ++b) x[a][b] = __ldg(r + b);
+    }
+  }
+}
+
+// One plane's resampled value at one output pixel from its padded window x,
+// before offsets: the row stage per window column b (a ascending), then the
+// column stage (b ascending).  Every product is exact in f32 (bf16 x bf16, or an
+// int sum), so an FMA rounds as __fadd_rn after __fmul_rn does; the first term
+// is taken without the loop's 0.f + (which changes only the sign of a zero sum,
+// and the epilogue's offsets, never 0, remove that sign).  K1's sum is an exact
+// int: bias + sum w * x with bias = -128 * sum w is the kernel's sum w * (x - 128).
+template <typename T, bool kI8, int kTaps>
+__device__ __forceinline__ float window_value(const uint32_t (&x)[kTaps][kTaps],
+                                              const int32_t* rw, int bias,
+                                              const float (&cw)[kTaps], float inv_s) {
+  float acc = 0.f;
+#pragma unroll
+  for (int b = 0; b < kTaps; ++b) {
+    float tb;
+    if (kI8) {
+      int t = bias;
+#pragma unroll
+      for (int a = 0; a < kTaps; ++a) t += rw[a] * (int)x[a][b];
+      tb = bf16_rn(__fmul_rn(__int2float_rn(t), inv_s));
+    } else {
+      float t = 0.f;
+#pragma unroll
+      for (int a = 0; a < kTaps; ++a) {
+        // a u8 sample is exact in bf16; a 10-16 bit one rounds, as on the TPU
+        const float xs = sizeof(T) == 1 ? (float)x[a][b] : bf16_rn((float)x[a][b]);
+        t = a ? __fmaf_rn(__int_as_float(rw[a]), xs, t)
+              : __fmul_rn(__int_as_float(rw[a]), xs);
+      }
+      tb = bf16_rn(t);
+    }
+    acc = b ? __fmaf_rn(tb, cw[b], acc) : __fmul_rn(tb, cw[b]);
+  }
+  return acc;
+}
+
+// One output pixel (i, j) of frame f on the window records: the pixel's column
+// records are coalesced reads, its row's record a warp-uniform read of 16-byte
+// words through L1; the offsets inside a frame are 32-bit, and the three
+// windows' loads are independent of one another, so all of them are in flight
+// together.
+template <typename T, bool kI8, int kTaps, bool kGuard>
+__device__ __forceinline__ void window_px(const LadderArgs& a, int f, int i, int j) {
+  // u8 windows of 3-4 samples: two words a row; 2-tap windows: a load per sample
+  constexpr bool kWords = sizeof(T) == 1 && kTaps > 2;
+  constexpr int kRec = 8 + 2 * kTaps;           // int32 words of a row record
+  constexpr int kLoad = kI8 ? kRec : kRec - 4;  // the last 4: K1's bias words
+  const int ow = a.out_w;
+  const int32_t* cr = a.cols + j;
+  const int cy = __ldg(cr), cc = __ldg(cr + ow);
+  float cwy[kTaps], cwc[kTaps];
+#pragma unroll
+  for (int k = 0; k < kTaps; ++k) {
+    cwy[k] = __int_as_float(__ldg(cr + (2 + k) * ow));
+    cwc[k] = __int_as_float(__ldg(cr + (2 + kTaps + k) * ow));
+  }
+  int32_t w[kRec];
+  const int4* rec = reinterpret_cast<const int4*>(a.rows + i * kRec);
+#pragma unroll
+  for (int q = 0; q < kLoad / 4; ++q) {
+    const int4 e = __ldg(rec + q);
+    w[4 * q] = e.x, w[4 * q + 1] = e.y, w[4 * q + 2] = e.z, w[4 * q + 3] = e.w;
+  }
+  const size_t luma = (size_t)a.h * a.w, chroma = (size_t)a.ch * a.cw;
+  const T* const y = static_cast<const T*>(a.y);
+  const T* const u = static_cast<const T*>(a.u);
+  const T* const v = static_cast<const T*>(a.v);
+  uintptr_t last_y = 0, last_u = 0, last_v = 0;
+  if (kGuard) {
+    last_y = ((uintptr_t)(y + a.n * luma) - 1) & ~(uintptr_t)3;
+    last_u = ((uintptr_t)(u + a.n * chroma) - 1) & ~(uintptr_t)3;
+    last_v = ((uintptr_t)(v + a.n * chroma) - 1) & ~(uintptr_t)3;
+  }
+  const int at_y = w[0] * a.w + cy, at_c = w[1] * a.cw + cc;
+  uint32_t xy[kTaps][kTaps], xu[kTaps][kTaps], xv[kTaps][kTaps];
+  load_window<T, kTaps, kWords, kGuard>(y + f * luma + at_y, a.w, last_y, xy);
+  load_window<T, kTaps, kWords, kGuard>(u + f * chroma + at_c, a.cw, last_u, xu);
+  load_window<T, kTaps, kWords, kGuard>(v + f * chroma + at_c, a.cw, last_v, xv);
+  const int by = kI8 ? w[4 + 2 * kTaps] : 0, bc = kI8 ? w[5 + 2 * kTaps] : 0;
+  float oy = window_value<T, kI8, kTaps>(xy, w + 4, by, cwy, a.inv_sy);
+  float ou = window_value<T, kI8, kTaps>(xu, w + 4 + kTaps, bc, cwc, a.inv_sc);
+  float ov = window_value<T, kI8, kTaps>(xv, w + 4 + kTaps, bc, cwc, a.inv_sc);
+  if (kI8) {
+    const float offy = __int_as_float(w[2]), offc = __int_as_float(w[3]);
+    oy = __fadd_rn(oy, offy);
+    ou = __fadd_rn(ou, offc);
+    ov = __fadd_rn(ov, offc);
+  }
+  const size_t plane = (size_t)a.out_h * ow;
+  store_rgb(a, a.out + f * 3 * plane + (i * ow + j), plane, __fsub_rn(oy, a.low),
+            __fsub_rn(ou, a.mid), __fsub_rn(ov, a.mid));
+}
+
+// The band walk for windows wider than 4 (lanczos3, a fused smooth, wider area):
+// each pixel reads its band records, as 0. above walked every window.
 template <typename T, bool kI8>
-__global__ void __launch_bounds__(256) ladder_kernel(const LadderArgs a) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  const int f = blockIdx.z;
-  if (i >= a.out_h || j >= a.out_w) return;
+__device__ __forceinline__ void band_px(const LadderArgs& a, int f, int i, int j) {
   const size_t luma = (size_t)a.h * a.w, chroma = (size_t)a.ch * a.cw;
   const T* y = static_cast<const T*>(a.y) + f * luma;
   const T* u = static_cast<const T*>(a.u) + f * chroma;
@@ -229,8 +391,26 @@ __global__ void __launch_bounds__(256) ladder_kernel(const LadderArgs a) {
     ov = __fadd_rn(ov, a.off_c[i]);
   }
   const size_t plane = (size_t)a.out_h * a.out_w;
-  store_rgb(a, a.out + f * 3 * plane + (size_t)i * a.out_w + j, plane,
-            __fsub_rn(oy, a.low), __fsub_rn(ou, a.mid), __fsub_rn(ov, a.mid));
+  store_rgb(a, a.out + f * 3 * plane + (i * a.out_w + j), plane, __fsub_rn(oy, a.low),
+            __fsub_rn(ou, a.mid), __fsub_rn(ov, a.mid));
+}
+
+// A block owns kBlockX output columns x kBlockY output rows of frame blockIdx.z,
+// one pixel a thread; a warp is 32 neighbouring columns of one row, so its row
+// record is one address and its stores are coalesced.  Word loads can pass the
+// plane tensor's end only in the last frame, so only its blocks clamp them.
+template <typename T, bool kI8, int kTaps>
+__global__ void __launch_bounds__(kBlockX* kBlockY) ladder_kernel(const LadderArgs a) {
+  const int j = blockIdx.x * kBlockX + threadIdx.x;
+  const int i = blockIdx.y * kBlockY + threadIdx.y;
+  const int f = blockIdx.z;
+  if (i >= a.out_h || j >= a.out_w) return;
+  if constexpr (kTaps == 0)
+    band_px<T, kI8>(a, f, i, j);
+  else if (sizeof(T) == 1 && kTaps > 2 && f == a.n - 1)
+    window_px<T, kI8, kTaps, true>(a, f, i, j);
+  else
+    window_px<T, kI8, kTaps, false>(a, f, i, j);
 }
 
 // K6/K7/K8 on the wire layout: frame f is h luma rows then h/2 rows of U,V
@@ -261,9 +441,20 @@ __global__ void __launch_bounds__(256) wire_kernel(const WireArgs a) {
 
 template <typename T, bool kI8>
 int launch(const LadderArgs* a, void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((a->out_w + 31) / 32, (a->out_h + 7) / 8, a->n);
-  ladder_kernel<T, kI8><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+  if (a->n < 1 || a->n > 65535 || a->out_h < 1 || a->out_w < 1 ||
+      (size_t)a->h * a->w > 0x7fffffff || (size_t)a->ch * a->cw > 0x7fffffff ||
+      (size_t)a->out_h * a->out_w > 0x7fffffff)  // 32-bit offsets inside a frame
+    return (int)cudaErrorInvalidValue;
+  const dim3 block(kBlockX, kBlockY);
+  const dim3 grid((a->out_w + kBlockX - 1) / kBlockX,
+                  (a->out_h + kBlockY - 1) / kBlockY, a->n);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (a->taps) {
+    case 0: ladder_kernel<T, kI8, 0><<<grid, block, 0, s>>>(*a); break;
+    case 2: ladder_kernel<T, kI8, 2><<<grid, block, 0, s>>>(*a); break;
+    case 4: ladder_kernel<T, kI8, 4><<<grid, block, 0, s>>>(*a); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -278,7 +469,9 @@ int launch_wire(const WireArgs* a, void* stream) {
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Each entry launches on `stream`, does
-// not synchronise, and returns cudaGetLastError() of its launch.
+// not synchronise, and returns cudaGetLastError() of its launch (the planar
+// entries return cudaErrorInvalidValue, without launching, for arguments they do
+// not take).
 extern "C" {
 int gmat_ladder_i8(const LadderArgs* a, void* stream) {
   return launch<uint8_t, true>(a, stream);

@@ -29,7 +29,12 @@ caller passes `reference=True` (the counterpart of the JAX
 `LAUNCHES` counts the kernel launches per kernel name.
 
 Crop, gaussian smooth and flip fold into the four resample matrices on
-the host (numpy, once per geometry), so the kernels never see them.
+the host (numpy, once per geometry), so the kernels never see them.  The
+host hands each matrix over in band form and, for the planar kernel, as
+window records padded to 2 or 4 taps (`_window_operands`: the kernel's
+instance for the geometry's widest window); `_prepared` keeps one
+argument template per (kind, geometry, device, epilogue constants) that
+each call copies and patches with its planes, output and batch size.
 """
 from __future__ import annotations
 
@@ -283,12 +288,23 @@ def _wire_matrices(kind: str, geom: tuple) -> dict:
 
 
 def _epilogue(colorspace: str, bits: int, norm: float, shift) -> dict:
-    """CSC/normalize constants, as the f32 values the TPU kernels use."""
-    low, mid = yuv_offsets(bits)
-    return {"mat": yuv2rgb_matrix(colorspace), "low": float(low),
+    """CSC/normalize constants, as the f32 values the TPU kernels use; one
+    dict per set of constants (shared: read it, do not change it), whose
+    "key" names them."""
+    return _epilogue_of(colorspace, bits, norm,
+                        shift if isinstance(shift, tuple) else tuple(shift))
+
+
+@lru_cache(maxsize=64)
+def _epilogue_of(colorspace: str, bits: int, norm: float,
+                 shift: tuple) -> dict:
+    key = (str(colorspace), int(bits), float(norm),
+           tuple(float(s) for s in shift))
+    low, mid = yuv_offsets(key[1])
+    return {"mat": yuv2rgb_matrix(key[0]), "low": float(low),
             "mid": float(mid), "maxv": 2.0 * mid - 1.0,
-            "shift": tuple(float(np.float32(s)) for s in shift),
-            "inv_norm": float(np.float32(1.0 / float(norm)))}
+            "shift": tuple(float(np.float32(s)) for s in key[3]),
+            "inv_norm": float(np.float32(1.0 / key[2])), "key": key}
 
 
 # ------------------------------------------------------- plain versions
@@ -432,10 +448,70 @@ def _band(A: np.ndarray):
     return lo.astype(np.int32), n.astype(np.int32), packed
 
 
+# window widths the planar kernel has an instance for (fully unrolled);
+# wider windows take its band walk
+TAPS = (2, 4)
+
+
 @lru_cache(maxsize=32)
 def _kernel_operands(kind: str, geom: tuple, device: str) -> dict:
-    """Band-form operands, uploaded once per (geometry, device)."""
-    return _band_operands(kind, _ladder_matrices(kind, geom), device)
+    """Band-form operands, and the window records of the planar kernel's
+    instance for this geometry (`_window_operands`), uploaded once per
+    (kind, geometry, device)."""
+    m = _ladder_matrices(kind, geom)
+    ops = _band_operands(kind, m, device)
+    win = _window_operands(kind, m)
+    ops["taps"] = win["taps"]
+    if win["taps"]:
+        dev = torch.device(device)
+        ops.update(rows=torch.as_tensor(win["rows"], device=dev),
+                   cols=torch.as_tensor(win["cols"], device=dev))
+    return ops
+
+
+def _window(A: np.ndarray, taps: int):
+    """First input index and the `taps` weights of each row of A: its band
+    window padded with zero weights to `taps` inputs, moved left where it
+    would pass the input's end (so every padded window lies inside it)."""
+    lo = np.minimum(_band(A)[0], A.shape[1] - taps)
+    return lo, A[np.arange(A.shape[0])[:, None], lo[:, None] + np.arange(taps)]
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a, np.float32).view(np.int32)
+
+
+def _window_operands(kind: str, m: dict) -> dict:
+    """The planar kernel's window records for the operands `m` of
+    `_row_col_operands`, as numpy.  `taps` is the first of TAPS that holds
+    the widest band window of the four matrices (0: none does, and the
+    kernel walks the bands).  rows (out_h, 8 + 2 taps) int32: luma and
+    chroma first row, off_y and off_c (f32 bits; int8 rows only), luma then
+    chroma row weights (int8 values, or bf16 values as f32 bits), then for
+    int8 rows -128 * each weight row's sum; cols (2 + 2 taps, out_w): luma
+    and chroma first column, then luma and chroma column weights (f32
+    bits)."""
+    mats = (m["ahy"], m["ahc"], m["awy"].T, m["awc"].T)
+    widest = max(int(_band(np.ascontiguousarray(A))[1].max()) for A in mats)
+    taps = next((t for t in TAPS if widest <= t
+                 and min(A.shape[1] for A in mats) >= t), 0)
+    if not taps:
+        return {"taps": 0}
+    (ly, wy), (lc, wc), (cy, cwy), (cc, cwc) = (_window(A, taps)
+                                                for A in mats)
+    rows = np.zeros((len(ly), 8 + 2 * taps), np.int32)
+    rows[:, 0], rows[:, 1] = ly, lc
+    if kind == "i8":
+        rows[:, 2], rows[:, 3] = _bits(m["offy"]), _bits(m["offc"])
+        rows[:, 4:4 + taps] = wy
+        rows[:, 4 + taps:4 + 2 * taps] = wc
+        rows[:, 4 + 2 * taps] = -128 * wy.astype(np.int32).sum(1)
+        rows[:, 5 + 2 * taps] = -128 * wc.astype(np.int32).sum(1)
+    else:
+        rows[:, 4:4 + taps] = _bits(wy)
+        rows[:, 4 + taps:4 + 2 * taps] = _bits(wc)
+    cols = np.concatenate([cy[None], cc[None], _bits(cwy).T, _bits(cwc).T])
+    return {"taps": taps, "rows": rows, "cols": np.ascontiguousarray(cols)}
 
 
 def _band_operands(kind: str, m: dict, device: str) -> dict:
@@ -474,9 +550,10 @@ class _LadderArgs(ctypes.Structure):
     """Mirror of `struct LadderArgs` in csrc/ladder.cu."""
     _fields_ = ([(k, ctypes.c_void_p) for k in ("y", "u", "v", "out")]
                 + [(k, _Band) for k in ("row_y", "col_y", "row_c", "col_c")]
-                + [(k, ctypes.c_void_p) for k in ("off_y", "off_c")]
+                + [(k, ctypes.c_void_p) for k in ("off_y", "off_c", "rows",
+                                                  "cols")]
                 + [(k, ctypes.c_int32) for k in ("n", "h", "w", "ch", "cw",
-                                                  "out_h", "out_w")]
+                                                  "out_h", "out_w", "taps")]
                 + [("inv_sy", ctypes.c_float), ("inv_sc", ctypes.c_float),
                    ("mat", ctypes.c_float * 9)]
                 + [(k, ctypes.c_float) for k in ("low", "mid", "maxv",
@@ -484,25 +561,58 @@ class _LadderArgs(ctypes.Structure):
                 + [("shift", ctypes.c_float * 3)])
 
 
-def _ladder_args(y, u, v, out, ops: dict, c: dict) -> _LadderArgs:
-    """Kernel arguments: pointers of the planes, output and band
-    operands, shapes and the epilogue constants."""
-    off = ("off_y", "off_c")
+def _args_template(dims: tuple, ops: dict, c: dict) -> _LadderArgs:
+    """Kernel arguments for planes of dims (h, w, ch, cw, out_h, out_w):
+    the operands' pointers, the instance and the epilogue constants; the
+    planes, output and batch size are patched in per call (`_patch`)."""
+    ptr = [ops[k].data_ptr() if k in ops else None
+           for k in ("off_y", "off_c", "rows", "cols")]
     return _LadderArgs(
-        y.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None, None, None, None,
         *(_band_arg(ops, k) for k in ("row_y", "col_y", "row_c", "col_c")),
-        *(ops[k].data_ptr() if k in ops else None for k in off),
-        y.shape[0], y.shape[1], y.shape[2], u.shape[1], u.shape[2],
-        out.shape[2], out.shape[3],
+        *ptr, 0, *dims, ops["taps"],
         ops.get("inv_sy", 1.0), ops.get("inv_sc", 1.0),
         (ctypes.c_float * 9)(*c["mat"].reshape(-1).tolist()),
         c["low"], c["mid"], c["maxv"], c["inv_norm"],
         (ctypes.c_float * 3)(*c["shift"]))
 
 
+def _patch(args: _LadderArgs, y, u, v, out) -> _LadderArgs:
+    args.y, args.u, args.v, args.out = (y.data_ptr(), u.data_ptr(),
+                                        v.data_ptr(), out.data_ptr())
+    args.n = y.shape[0]
+    return args
+
+
+def _ladder_args(y, u, v, out, ops: dict, c: dict) -> _LadderArgs:
+    """Kernel arguments built afresh: pointers of the planes, output and
+    operands, shapes, the instance and the epilogue constants."""
+    dims = (y.shape[1], y.shape[2], u.shape[1], u.shape[2], out.shape[2],
+            out.shape[3])
+    return _patch(_args_template(dims, ops, c), y, u, v, out)
+
+
+@lru_cache(maxsize=32)
+def _prepared(kind: str, geom: tuple, device: str, key: tuple) -> tuple:
+    """The operands of one geometry and its argument template for the
+    epilogue constants `key` (kept together: the template holds the
+    operands' device pointers)."""
+    ops = _kernel_operands(kind, geom, device)
+    return ops, _args_template(geom[:6], ops, _epilogue_of(*key))
+
+
 _ENTRIES = {("i8", torch.uint8): ("ladder_i8", "gmat_ladder_i8"),
             ("bf16", torch.uint8): ("ladder_bf16", "gmat_ladder_bf16_u8"),
             ("bf16", torch.uint16): ("ladder_bf16", "gmat_ladder_bf16_u16")}
+
+
+@lru_cache(maxsize=4)
+def _checked(lib) -> ctypes.CDLL:
+    """The kernel library, once its LadderArgs is known to match ours."""
+    if lib.gmat_ladder_args_size() != ctypes.sizeof(_LadderArgs):
+        raise RuntimeError("_LadderArgs does not match LadderArgs in "
+                           "csrc/ladder.cu")
+    return lib
 
 
 def _launch(kind: str, y, u, v, geom: tuple, c: dict) -> torch.Tensor:
@@ -525,18 +635,20 @@ def _launch(kind: str, y, u, v, geom: tuple, c: dict) -> torch.Tensor:
         raise ValueError("the ladder kernels take contiguous planes")
     if not 0 < y.shape[0] <= 65535:
         raise ValueError(f"batch {y.shape[0]} outside 1..65535")
-    out_h, out_w = geom[4], geom[5]
-    lib = _build.library()
-    if lib.gmat_ladder_args_size() != ctypes.sizeof(_LadderArgs):
-        raise RuntimeError("_LadderArgs does not match LadderArgs in "
-                           "csrc/ladder.cu")
-    ops = _kernel_operands(kind, geom, str(y.device))
-    out = torch.empty((y.shape[0], 3, out_h, out_w), dtype=torch.float32,
+    if y.shape[1] * y.shape[2] >= 1 << 31:
+        raise ValueError(f"frame {tuple(y.shape[1:])} has 2**31 samples or "
+                         "more")
+    fn = getattr(_checked(_build.library()), entry)
+    _ops, template = _prepared(kind, geom, str(y.device), c["key"])
+    out = torch.empty((y.shape[0], 3, geom[4], geom[5]), dtype=torch.float32,
                       device=y.device)
-    args = _ladder_args(y, u, v, out, ops, c)
-    with torch.cuda.device(y.device):
-        err = getattr(lib, entry)(ctypes.byref(args),
-                                  torch.cuda.current_stream().cuda_stream)
+    args = _patch(_LadderArgs.from_buffer_copy(template), y, u, v, out)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    if y.device.index == torch.cuda.current_device():
+        err = fn(ctypes.byref(args), stream)
+    else:   # the kernel launches on the current device
+        with torch.cuda.device(y.device):
+            err = fn(ctypes.byref(args), stream)
     if err:
         raise RuntimeError(f"{name} launch failed: {_build.error_string(err)}")
     LAUNCHES[name] += 1
