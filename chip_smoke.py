@@ -22,6 +22,8 @@ on the card:
   wire_lane        K6 (ladder_nv12), K7 (ladder_nv12_i8), K8 (ladder_p010)
                    through the wire-format entry points, each against its
                    plain version and its planar twin; K7 on 8 x 8K NV12
+  wire_ragged      the wire kernels on 4 x 998x562 NV12 / P010 -> 225x223
+                   (499 U,V pairs a row): K6 bilinear and bicubic, K7, K8
   abr_ladder       K4 through the ABR path on the 1080p ladder 720p/540p/360p,
                    where the int8 tap gate picks the bf16 rows (rungs_bf16);
                    rung files written and read back as Y4M
@@ -38,7 +40,7 @@ on the card:
   smart_decode     FrameExtractor, FrameSelect and extract_to_torch on a
                    small libx264 clip, where libavcodec exists
   timing           CUDA-event medians: kernel, plain version, library call,
-                   separate-op path; for the planar ladder and rung kernels
+                   separate-op path; for the ladder, wire and rung kernels
                    also the wrapper's device and host time and the ptxas
                    registers and spills of the instance timed; for the rung
                    kernels GB/s and tiles
@@ -788,18 +790,19 @@ def main() -> None:
         ragged_ladder[kname] = {"launches": counts, "max_lsb_vs_plain": err}
     emit("ladder_ragged", source=[n_r, h_r, w_r],
          output=[oh_r, ow_r], **ragged_ladder)
-    del p_r, got
+    del got
 
     # ----------------------------------------- wire lane (K6, K7, K8)
+    def nv12_wire(planes):
+        return pack_nv12(FrameBatch(dict(zip("yuv", planes)), "yuv420p",
+                                    planes[0].shape[2], planes[0].shape[1]))
+
     def p010_wire(planes):
         """P010 wire of 10-bit planes: samples << 6, U,V interleaved."""
-        fb = FrameBatch({k: p.to(torch.int32) << 6
-                         for k, p in zip("yuv", planes)}, "yuv420p", W, H)
-        return pack_nv12(fb).to(torch.uint16)
+        return nv12_wire([p.to(torch.int32) << 6
+                          for p in planes]).to(torch.uint16)
 
-    nv12, p010 = pack_nv12(bufs[0]), p010_wire(p10)
-    nv12_8k = pack_nv12(FrameBatch(dict(zip("yuv", p8k)), "yuv420p", 7680,
-                                   4320))
+    nv12, p010, nv12_8k = pack_nv12(bufs[0]), p010_wire(p10), nv12_wire(p8k)
     zero_counts(ladder)
     k6 = ladder.fused_ladder_nv12(nv12, OUT, OUT)
     k7 = ladder.fused_ladder_nv12_i8(nv12, OUT, OUT)
@@ -842,7 +845,51 @@ def main() -> None:
     emit("wire_lane", shape=[N, H * 3 // 2, W], launches=wire_counts,
          max_lsb_vs_plain=errs_wire, max_lsb_vs_planar_twin=twins,
          shape_8k=list(nv12_8k.shape))
-    del k6, k7, k6_bicubic, k8, k7_8k, nv12_8k
+    del k6, k7, k6_bicubic, k8, k7_8k
+
+    # ---------------------------- wire kernels on ragged widths (K6-K8)
+    p_r10 = make(n_r, h_r, w_r, h_r // 2, w_r // 2, hi=1024,
+                 dtype=torch.uint16)
+    nv12_r, p010_r = nv12_wire(p_r), p010_wire(p_r10)
+    bicubic = {"method": "bicubic"}
+    ragged_cases = {   # name: (wrapper, wire, options, tolerance, twin)
+        "ladder_nv12": (ladder.fused_ladder_nv12, nv12_r, {}, LSB_BF16,
+                        lambda: ladder.fused_ladder(*p_r, oh_r, ow_r)),
+        "ladder_nv12 bicubic": (
+            ladder.fused_ladder_nv12, nv12_r, bicubic, LSB_BF16,
+            lambda: ladder.fused_ladder(*p_r, oh_r, ow_r, **bicubic)),
+        "ladder_nv12_i8": (ladder.fused_ladder_nv12_i8, nv12_r, {}, LSB_I8,
+                           lambda: ladder.fused_ladder_i8(*p_r, oh_r, ow_r)),
+        "ladder_p010": (ladder.fused_ladder_p010, p010_r, {}, LSB_BF16,
+                        lambda: ladder.fused_ladder_u16(*p_r10, oh_r, ow_r,
+                                                        bits=10)),
+    }
+    zero_counts(ladder)
+    got_r = {k: fn(wire, oh_r, ow_r, **kw)
+             for k, (fn, wire, kw, _tol, _twin) in ragged_cases.items()}
+    torch.cuda.synchronize()
+    ragged_wire_counts = dict(ladder.LAUNCHES)
+    check(ragged_wire_counts == want_counts(ladder, ladder_nv12=2,
+                                            ladder_nv12_i8=1, ladder_p010=1),
+          f"ragged wire launches {ragged_wire_counts}")
+    ragged_wire = {}
+    for k, (fn, wire, kw, tol, twin) in ragged_cases.items():
+        got = got_r[k]
+        check(tuple(got.shape) == (n_r, 3, oh_r, ow_r)
+              and bool(torch.isfinite(got).all()), f"ragged {k} output")
+        err = lsb(got, fn(wire, oh_r, ow_r, reference=True, **kw))
+        err_twin = lsb(got, twin())
+        check(err <= tol and err_twin <= LSB_TWIN,
+              f"ragged {k}: {err} LSB vs plain, {err_twin} vs its twin")
+        kind = k.split()[0][len("ladder_"):]
+        geom_r = (h_r, w_r, oh_r, ow_r, kw.get("method", "bilinear"))
+        ragged_wire[k] = {
+            "max_lsb_vs_plain": err, "max_lsb_vs_planar_twin": err_twin,
+            "taps": ladder._wire_kernel_operands(kind, geom_r,
+                                                 "cuda:0")["taps"]}
+    emit("wire_ragged", source=[n_r, h_r * 3 // 2, w_r],
+         output=[oh_r, ow_r], launches=ragged_wire_counts, **ragged_wire)
+    del p_r, p_r10, nv12_r, p010_r, got_r, got
 
     # ------------------------------------ ABR ladder (K4) and K5 (4K)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -993,25 +1040,41 @@ def main() -> None:
                         "ptxas": kernel_ptxas(usage, "ladder_kernel", kind,
                                               pair[0][0].dtype, taps), **b}
     geom_w = (H, W, OUT, OUT, "bilinear")
+    geom_w8k = (4320, 7680, OUT, OUT, "bilinear")
     pair_nv12, pair_p010 = (nv12, pack_nv12(bufs[1])), (p010, p010_wire(p10b))
-    wire_cases = {   # name: (kind, constants, two wire batches)
-        "ladder_nv12": ("nv12", c8, pair_nv12),
-        "ladder_nv12_i8": ("nv12_i8", c8, pair_nv12),
-        "ladder_p010": ("p010", c10, pair_p010),
+    wire_cases = {   # name: (kind, geometry, constants, two wire batches)
+        "ladder_nv12": ("nv12", geom_w, c8, pair_nv12),
+        "ladder_nv12_i8": ("nv12_i8", geom_w, c8, pair_nv12),
+        "ladder_p010": ("p010", geom_w, c10, pair_p010),
+        "ladder_nv12_i8_8k": ("nv12_i8", geom_w8k, c8,
+                              (nv12_8k, nv12_wire(p8kb))),
     }
-    for case, (kind, c, pair) in wire_cases.items():
-        go = [wire_launcher(ladder, kind, p, geom_w, c) for p in pair]
+    wire_entries = {"nv12": ladder.fused_ladder_nv12,
+                    "nv12_i8": ladder.fused_ladder_nv12_i8,
+                    "p010": ladder.fused_ladder_p010}
+    for case, (kind, g, c, pair) in wire_cases.items():
+        go = [wire_launcher(ladder, kind, p, g, c) for p in pair]
         ms, runs, host_ms = event_ms(lambda i: go[i % 2]())
-        pops = ladder._wire_plain_operands(kind, geom_w, "cuda:0")
+        wrapper_ms, _, wrapper_host_ms = event_ms(
+            lambda i: wire_entries[kind](pair[i % 2], OUT, OUT))
+        taps = ladder._wire_kernel_operands(kind, g, "cuda:0")["taps"]
+        pops = ladder._wire_plain_operands(kind, g, "cuda:0")
         plain_ms, _, _ = event_ms(
             lambda i: ladder._WIRE_PLAIN[kind](pair[i % 2], pops, c),
             calls=2, reps=5)
-        b = wire_bound(ladder, kind, geom_w, N, pair[0].element_size())
+        n = pair[0].shape[0]
+        b = wire_bound(ladder, kind, g, n, pair[0].element_size())
         timing[case] = {"ms": ms, "runs_ms": runs, "host_ms": host_ms,
+                        "wrapper_ms": wrapper_ms,
+                        "wrapper_host_ms": wrapper_host_ms,
                         "plain_ms": plain_ms, "library_ms": None,
-                        "frames": N, "frames_per_s": N / ms * 1e3,
-                        "launches_per_batch": 1,
-                        "bound_share": b["bound_ms"] / ms, **b}
+                        "frames": n, "frames_per_s": n / ms * 1e3,
+                        "launches_per_batch": 1, "taps": taps,
+                        "bound_share": b["bound_ms"] / ms,
+                        "ptxas": kernel_ptxas(usage, "wire_kernel",
+                                              ladder._WIRE[kind].row,
+                                              pair[0].dtype, taps), **b}
+    del nv12_8k, pair_nv12, pair_p010
     p4kb = make(n4k, 2160, 3840, 1080, 1920)
     geom_r = (H, W, H // 2, W // 2, LADDER_1080, "bilinear")
     geom_4k = (2160, 3840, 1080, 1920, LADDER_4K, "bilinear")
@@ -1067,20 +1130,28 @@ def main() -> None:
     def row(name, case, replaces, jax_fn, launches, err, source="ladder.cu",
             abs_err=None):
         t = timing[case]
-        return {"name": name, "route": "cuda",
-                "source": f"gmat_tpu_torch/csrc/{source}",
-                "replaces": f"{JAX}:{replaces}", "jax": f"{JAX}:{jax_fn}",
-                "launches": launches,
-                "max_abs_err": err / 255.0 if abs_err is None else abs_err,
-                "max_lsb": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t.get("library_ms")}
+        r = {"name": name, "route": "cuda",
+             "source": f"gmat_tpu_torch/csrc/{source}",
+             "replaces": f"{JAX}:{replaces}", "jax": f"{JAX}:{jax_fn}",
+             "launches": launches,
+             "max_abs_err": err / 255.0 if abs_err is None else abs_err,
+             "max_lsb": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+             "library_ms": t.get("library_ms")}
+        if "taps" in t:
+            r["taps"] = t["taps"]
+        return r
 
     k2 = row("ladder_bf16", "ladder_bf16", 123, "_ladder_kernel",
              bf16_counts["ladder_bf16"], max(errs_k2.values()))
     k2.update(ms_u16=timing["ladder_bf16_u16"]["ms"],
               plain_ms_u16=timing["ladder_bf16_u16"]["plain_ms"],
               bound_ms_u16=timing["ladder_bf16_u16"]["bound_ms"])
+    k7 = row("ladder_nv12_i8", "ladder_nv12_i8", 611, "_ladder_nv12_kernel_i8",
+             wire_counts["ladder_nv12_i8"], errs_wire["ladder_nv12_i8"])
+    k7.update(ms_8k=timing["ladder_nv12_i8_8k"]["ms"],
+              plain_ms_8k=timing["ladder_nv12_i8_8k"]["plain_ms"],
+              bound_ms_8k=timing["ladder_nv12_i8_8k"]["bound_ms"])
     kernels = [
         row("ladder_i8", "ladder_i8", 455, "_ladder_kernel_i8",
             main_counts["ladder_i8"], err_k1),
@@ -1100,9 +1171,7 @@ def main() -> None:
             "rungs.cu", err_k5),
         row("ladder_nv12", "ladder_nv12", 321, "_ladder_nv12_kernel",
             wire_counts["ladder_nv12"], errs_wire["ladder_nv12"]),
-        row("ladder_nv12_i8", "ladder_nv12_i8", 611,
-            "_ladder_nv12_kernel_i8", wire_counts["ladder_nv12_i8"],
-            errs_wire["ladder_nv12_i8"]),
+        k7,
         row("ladder_p010", "ladder_p010", 734, "_ladder_p010_kernel",
             wire_counts["ladder_p010"], errs_wire["ladder_p010"]),
     ]

@@ -8,18 +8,18 @@
 //                                 any width, so 8K frames need no chunked variant
 //   K2 _ladder_kernel             (bf16 row stage, u8 or lsb-aligned u16 samples)
 //                                 -> ladder_kernel<uint8_t|uint16_t, false, *>
+//   K6 _ladder_nv12_kernel        (NV12 wire, bf16 rows)  -> wire_kernel<uint8_t, false, *>
+//   K7 _ladder_nv12_kernel_i8     (NV12 wire, int8 rows)  -> wire_kernel<uint8_t, true, *>
+//   K8 _ladder_p010_kernel        (P010 wire, bf16 rows)  -> wire_kernel<uint16_t, false, *>
 //   (* the window instance: 2 or 4 taps, or 0 for the band walk)
-//   K6 _ladder_nv12_kernel        (NV12 wire, bf16 rows)  -> wire_kernel<uint8_t, false>
-//   K7 _ladder_nv12_kernel_i8     (NV12 wire, int8 rows)  -> wire_kernel<uint8_t, true>
-//   K8 _ladder_p010_kernel        (P010 wire, bf16 rows)  -> wire_kernel<uint16_t, false>
 //
 // The wire kernels read (N, 3H/2, W): luma rows, then interleaved U,V rows.  The
 // TPU kernels deinterleave with zero-padded (W, out_w) column matrices (U at even
-// columns, V at odd); here the planar chroma band (W/2 inputs) is walked over U,V
+// columns, V at odd); here the planar chroma matrix (W/2 inputs) indexes U,V
 // pairs, one 2-sample load per pair, which sums the same nonzero terms without
-// walking the zeros.  K6's row stage sums luma over 512-row chunks and chroma over
-// half as many; K8 in one chunk; these kernels, like K2's, sum each band window
-// in one f32 loop (the plain versions repeat the chunks: <= 1 u8-LSB apart).
+// the zeros.  K6's row stage sums luma over 512-row chunks and chroma over half
+// as many; K8 in one chunk; these kernels, like K2's, sum each window in one f32
+// loop (the plain versions repeat the chunks: <= 1 u8-LSB apart).
 // K8 rounds the raw msb-aligned u16 value to bf16 and scales by 1/64 after the
 // column stage, as the TPU kernel does (not the same as shifting first when the
 // low 6 bits are set).
@@ -84,8 +84,28 @@
 //  With 1-4: 0.053 / 0.053 / 0.089 ms (84% / 84% / 87% of the bound), 8K 0.024
 //  (69%), 32 registers, no spills, the same bits as before.  What is left at
 //  1080p is the sample loads; at 8K each luma pair sits in a sector of its own.
+//
+// The wire kernel (K6/K7, K8), redesigned the same way (timed as above, on the
+// same card).  It walked each pixel's band records as 0. above did, one U,V pair
+// load per chroma sample pair: 0.092 ms per 64 x 1080p NV12 -> 224^2 batch
+// (either row stage, 48% of the bound), 0.102 for P010 (76%).  Now:
+//  - 1, 2 and 4 as in the planar kernel: the host builds the same window records
+//    from the wire matrices, with the same function; the instance follows the
+//    widest window; one pixel a thread in the same blocks.
+//  - The chroma record's first column is a U,V pair index, and the chroma window
+//    is kTaps x kTaps pairs: one 2-sample load yields U and V, which share the
+//    chroma row and column weights, so a 2-tap pixel issues 4 luma and 4 pair
+//    loads where the planar kernel issues 12.
+//  - A frame's U,V rows follow its luma rows, so a luma word (u8, 3-4 taps)
+//    past a row's end stays inside the tensor and no load is clamped; a pair
+//    window lies inside its plane.
+//  With these: 0.053 / 0.053 / 0.089 ms (K6 / K7 / K8; 84% / 84% / 86% of the
+//  bound), K7 at 8 x 8K 0.024 (67%), K6 bicubic 0.076 (was 0.126), 32
+//  registers, no spills, the same bits as before; no faster than the planar
+//  kernel, though it issues fewer loads: the sectors the samples sit in, not
+//  the loads, are what is left.
 // Later work: put the int8 row stage on the tensor cores for wide (area,
-// smoothed) bands, and give the wire kernels the same design.
+// smoothed) bands.
 
 #include <cstddef>
 #include <cstdint>
@@ -133,7 +153,12 @@ struct WireArgs {
   Band col_c;       // planar chroma columns: w/2 inputs, one per U,V pair
   const float* off_y;  // K7 only, as in LadderArgs
   const float* off_c;
+  // The window records of LadderArgs for the wire matrices: chroma rows are U,V
+  // rows, and the chroma first column is a U,V pair index.
+  const int32_t* rows;
+  const int32_t* cols;
   int32_t n, h, w, out_h, out_w;
+  int32_t taps;          // 2 or 4: window instances; 0: the band walk
   float inv_sy, inv_sc;  // K7 only
   float post;            // scale after the column stage: 1, or 1/64 for P010
   float mat[9];
@@ -235,11 +260,16 @@ __device__ __forceinline__ float2 resample_uv_px(const T* __restrict__ uv, int w
   return make_float2(acc_u, acc_v);
 }
 
-// Epilogue of every ladder kernel on offset-free planes: 3x3 matrix, clip
-// [0, maxv], (c - shift[c]) * inv_norm, three stores `plane` floats apart.
+// Epilogue of every ladder kernel at output pixel (i, j) of frame f, on the
+// resampled planes with their int8 offsets: the low / mid offsets, 3x3 matrix,
+// clip [0, maxv], (c - shift[c]) * inv_norm, three stores a plane apart.
 template <typename Args>
-__device__ __forceinline__ void store_rgb(const Args& a, float* o, size_t plane,
-                                          float yy, float uu, float vv) {
+__device__ __forceinline__ void store_rgb(const Args& a, int f, int i, int j, float oy,
+                                          float ou, float ov) {
+  const size_t plane = (size_t)a.out_h * a.out_w;
+  float* const o = a.out + f * 3 * plane + (i * a.out_w + j);
+  const float yy = __fsub_rn(oy, a.low), uu = __fsub_rn(ou, a.mid),
+              vv = __fsub_rn(ov, a.mid);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     float s = __fadd_rn(__fadd_rn(__fmul_rn(a.mat[3 * c], yy),
@@ -317,33 +347,58 @@ __device__ __forceinline__ float window_value(const uint32_t (&x)[kTaps][kTaps],
   return acc;
 }
 
-// One output pixel (i, j) of frame f on the window records: the pixel's column
-// records are coalesced reads, its row's record a warp-uniform read of 16-byte
-// words through L1; the offsets inside a frame are 32-bit, and the three
-// windows' loads are independent of one another, so all of them are in flight
-// together.
+// The window records of output pixel (i, j): its column's record (first luma and
+// chroma column, then their weights) read coalesced, its row's record read by
+// the whole warp at one address as 16-byte words through L1.  luma() and
+// chroma() are a plane's resampled value from its padded window, before the
+// int8 offsets off_y() / off_c().
+template <bool kI8, int kTaps>
+struct Records {
+  static constexpr int kRec = 8 + 2 * kTaps;  // int32 words of a row record
+  int cy, cc;
+  float cwy[kTaps], cwc[kTaps];
+  int32_t w[kRec];
+
+  __device__ __forceinline__ Records(const int32_t* rows, const int32_t* cols, int ow,
+                                     int i, int j) {
+    constexpr int kLoad = kI8 ? kRec : kRec - 4;  // the last 4: K1/K7's bias words
+    const int32_t* cr = cols + j;
+    cy = __ldg(cr), cc = __ldg(cr + ow);
+#pragma unroll
+    for (int k = 0; k < kTaps; ++k) {
+      cwy[k] = __int_as_float(__ldg(cr + (2 + k) * ow));
+      cwc[k] = __int_as_float(__ldg(cr + (2 + kTaps + k) * ow));
+    }
+    const int4* rec = reinterpret_cast<const int4*>(rows + i * kRec);
+#pragma unroll
+    for (int q = 0; q < kLoad / 4; ++q) {
+      const int4 e = __ldg(rec + q);
+      w[4 * q] = e.x, w[4 * q + 1] = e.y, w[4 * q + 2] = e.z, w[4 * q + 3] = e.w;
+    }
+  }
+  template <typename T>
+  __device__ __forceinline__ float luma(const uint32_t (&x)[kTaps][kTaps],
+                                        float inv_s) const {
+    return window_value<T, kI8, kTaps>(x, w + 4, kI8 ? w[4 + 2 * kTaps] : 0, cwy, inv_s);
+  }
+  template <typename T>
+  __device__ __forceinline__ float chroma(const uint32_t (&x)[kTaps][kTaps],
+                                          float inv_s) const {
+    return window_value<T, kI8, kTaps>(x, w + 4 + kTaps, kI8 ? w[5 + 2 * kTaps] : 0, cwc,
+                                       inv_s);
+  }
+  __device__ __forceinline__ float off_y() const { return __int_as_float(w[2]); }
+  __device__ __forceinline__ float off_c() const { return __int_as_float(w[3]); }
+};
+
+// One output pixel (i, j) of frame f on the window records; the offsets inside a
+// frame are 32-bit, and the three windows' loads are independent of one
+// another, so all of them are in flight together.
 template <typename T, bool kI8, int kTaps, bool kGuard>
 __device__ __forceinline__ void window_px(const LadderArgs& a, int f, int i, int j) {
   // u8 windows of 3-4 samples: two words a row; 2-tap windows: a load per sample
   constexpr bool kWords = sizeof(T) == 1 && kTaps > 2;
-  constexpr int kRec = 8 + 2 * kTaps;           // int32 words of a row record
-  constexpr int kLoad = kI8 ? kRec : kRec - 4;  // the last 4: K1's bias words
-  const int ow = a.out_w;
-  const int32_t* cr = a.cols + j;
-  const int cy = __ldg(cr), cc = __ldg(cr + ow);
-  float cwy[kTaps], cwc[kTaps];
-#pragma unroll
-  for (int k = 0; k < kTaps; ++k) {
-    cwy[k] = __int_as_float(__ldg(cr + (2 + k) * ow));
-    cwc[k] = __int_as_float(__ldg(cr + (2 + kTaps + k) * ow));
-  }
-  int32_t w[kRec];
-  const int4* rec = reinterpret_cast<const int4*>(a.rows + i * kRec);
-#pragma unroll
-  for (int q = 0; q < kLoad / 4; ++q) {
-    const int4 e = __ldg(rec + q);
-    w[4 * q] = e.x, w[4 * q + 1] = e.y, w[4 * q + 2] = e.z, w[4 * q + 3] = e.w;
-  }
+  const Records<kI8, kTaps> r(a.rows, a.cols, a.out_w, i, j);
   const size_t luma = (size_t)a.h * a.w, chroma = (size_t)a.ch * a.cw;
   const T* const y = static_cast<const T*>(a.y);
   const T* const u = static_cast<const T*>(a.u);
@@ -354,24 +409,20 @@ __device__ __forceinline__ void window_px(const LadderArgs& a, int f, int i, int
     last_u = ((uintptr_t)(u + a.n * chroma) - 1) & ~(uintptr_t)3;
     last_v = ((uintptr_t)(v + a.n * chroma) - 1) & ~(uintptr_t)3;
   }
-  const int at_y = w[0] * a.w + cy, at_c = w[1] * a.cw + cc;
+  const int at_y = r.w[0] * a.w + r.cy, at_c = r.w[1] * a.cw + r.cc;
   uint32_t xy[kTaps][kTaps], xu[kTaps][kTaps], xv[kTaps][kTaps];
   load_window<T, kTaps, kWords, kGuard>(y + f * luma + at_y, a.w, last_y, xy);
   load_window<T, kTaps, kWords, kGuard>(u + f * chroma + at_c, a.cw, last_u, xu);
   load_window<T, kTaps, kWords, kGuard>(v + f * chroma + at_c, a.cw, last_v, xv);
-  const int by = kI8 ? w[4 + 2 * kTaps] : 0, bc = kI8 ? w[5 + 2 * kTaps] : 0;
-  float oy = window_value<T, kI8, kTaps>(xy, w + 4, by, cwy, a.inv_sy);
-  float ou = window_value<T, kI8, kTaps>(xu, w + 4 + kTaps, bc, cwc, a.inv_sc);
-  float ov = window_value<T, kI8, kTaps>(xv, w + 4 + kTaps, bc, cwc, a.inv_sc);
+  float oy = r.template luma<T>(xy, a.inv_sy);
+  float ou = r.template chroma<T>(xu, a.inv_sc);
+  float ov = r.template chroma<T>(xv, a.inv_sc);
   if (kI8) {
-    const float offy = __int_as_float(w[2]), offc = __int_as_float(w[3]);
-    oy = __fadd_rn(oy, offy);
-    ou = __fadd_rn(ou, offc);
-    ov = __fadd_rn(ov, offc);
+    oy = __fadd_rn(oy, r.off_y());
+    ou = __fadd_rn(ou, r.off_c());
+    ov = __fadd_rn(ov, r.off_c());
   }
-  const size_t plane = (size_t)a.out_h * ow;
-  store_rgb(a, a.out + f * 3 * plane + (i * ow + j), plane, __fsub_rn(oy, a.low),
-            __fsub_rn(ou, a.mid), __fsub_rn(ov, a.mid));
+  store_rgb(a, f, i, j, oy, ou, ov);
 }
 
 // The band walk for windows wider than 4 (lanczos3, a fused smooth, wider area):
@@ -390,9 +441,7 @@ __device__ __forceinline__ void band_px(const LadderArgs& a, int f, int i, int j
     ou = __fadd_rn(ou, a.off_c[i]);
     ov = __fadd_rn(ov, a.off_c[i]);
   }
-  const size_t plane = (size_t)a.out_h * a.out_w;
-  store_rgb(a, a.out + f * 3 * plane + (i * a.out_w + j), plane, __fsub_rn(oy, a.low),
-            __fsub_rn(ou, a.mid), __fsub_rn(ov, a.mid));
+  store_rgb(a, f, i, j, oy, ou, ov);
 }
 
 // A block owns kBlockX output columns x kBlockY output rows of frame blockIdx.z,
@@ -413,30 +462,71 @@ __global__ void __launch_bounds__(kBlockX* kBlockY) ladder_kernel(const LadderAr
     window_px<T, kI8, kTaps, false>(a, f, i, j);
 }
 
-// K6/K7/K8 on the wire layout: frame f is h luma rows then h/2 rows of U,V
-// pairs, w samples a row.  The column sums are scaled by `post` (1, or 1/64 for
-// P010, whose samples sit in the high bits: the raw u16 value is what rounds to
-// bf16, as on the TPU) before the int8 offsets and the epilogue.
-template <typename T, bool kI8>
-__global__ void __launch_bounds__(256) wire_kernel(const WireArgs a) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+// x[a][b]: U (xu) and V (xv) of pair (a, b) of the kTaps x kTaps window of U,V
+// pairs whose first pair is at p, in rows `pitch` pairs apart: one load a pair.
+template <typename T, int kTaps>
+__device__ __forceinline__ void load_pairs(const typename PairOf<T>::type* __restrict__ p,
+                                           int pitch, uint32_t (&xu)[kTaps][kTaps],
+                                           uint32_t (&xv)[kTaps][kTaps]) {
+#pragma unroll
+  for (int a = 0; a < kTaps; ++a) {
+#pragma unroll
+    for (int b = 0; b < kTaps; ++b) {
+      const auto q = __ldg(p + a * pitch + b);
+      xu[a][b] = q.x;
+      xv[a][b] = q.y;
+    }
+  }
+}
+
+// K6/K7/K8 on the wire layout: frame f is h luma rows then h/2 rows of w/2 U,V
+// pairs, blocks and threads as in ladder_kernel.  kTaps 2 or 4: the window
+// records, whose chroma first column is a pair index; U and V come from one pair
+// window and share its weights.  A luma word past a row's end lies in the
+// frame's U,V rows, so no load needs a clamp.  kTaps 0: the band walk.  The
+// column sums are scaled by `post` (1, or 1/64 for P010, whose samples sit in
+// the high bits: the raw u16 value is what rounds to bf16, as on the TPU) before
+// the int8 offsets and the epilogue.
+template <typename T, bool kI8, int kTaps>
+__global__ void __launch_bounds__(kBlockX* kBlockY) wire_kernel(const WireArgs a) {
+  const int j = blockIdx.x * kBlockX + threadIdx.x;
+  const int i = blockIdx.y * kBlockY + threadIdx.y;
   const int f = blockIdx.z;
   if (i >= a.out_h || j >= a.out_w) return;
-  const T* y = static_cast<const T*>(a.yuv) + (size_t)f * (a.h + a.h / 2) * a.w;
-  const T* uv = y + (size_t)a.h * a.w;
-  float oy = __fmul_rn(resample_px<T, kI8>(y, a.w, i, j, a.row_y, a.col_y, a.inv_sy),
-                       a.post);
-  const float2 c = resample_uv_px<T, kI8>(uv, a.w, i, j, a.row_c, a.col_c, a.inv_sc);
-  float ou = __fmul_rn(c.x, a.post), ov = __fmul_rn(c.y, a.post);
-  if (kI8) {
-    oy = __fadd_rn(oy, a.off_y[i]);
-    ou = __fadd_rn(ou, a.off_c[i]);
-    ov = __fadd_rn(ov, a.off_c[i]);
+  const int luma = a.h * a.w;
+  const T* const y = static_cast<const T*>(a.yuv) + (size_t)f * (luma + luma / 2);
+  float oy, ou, ov, offy = 0.f, offc = 0.f;
+  if constexpr (kTaps == 0) {
+    oy = resample_px<T, kI8>(y, a.w, i, j, a.row_y, a.col_y, a.inv_sy);
+    const float2 c = resample_uv_px<T, kI8>(y + luma, a.w, i, j, a.row_c, a.col_c,
+                                            a.inv_sc);
+    ou = c.x, ov = c.y;
+    if (kI8) offy = a.off_y[i], offc = a.off_c[i];
+  } else {
+    constexpr bool kWords = sizeof(T) == 1 && kTaps > 2;  // as in window_px
+    const Records<kI8, kTaps> r(a.rows, a.cols, a.out_w, i, j);
+    const int pitch = a.w / 2;
+    uint32_t xy[kTaps][kTaps], xu[kTaps][kTaps], xv[kTaps][kTaps];
+    load_window<T, kTaps, kWords, false>(y + (r.w[0] * a.w + r.cy), a.w, 0, xy);
+    load_pairs<T, kTaps>(reinterpret_cast<const typename PairOf<T>::type*>(y + luma) +
+                             (r.w[1] * pitch + r.cc),
+                         pitch, xu, xv);
+    oy = r.template luma<T>(xy, a.inv_sy);
+    ou = r.template chroma<T>(xu, a.inv_sc);
+    ov = r.template chroma<T>(xv, a.inv_sc);
+    if (kI8) offy = r.off_y(), offc = r.off_c();
   }
-  const size_t plane = (size_t)a.out_h * a.out_w;
-  store_rgb(a, a.out + f * 3 * plane + (size_t)i * a.out_w + j, plane,
-            __fsub_rn(oy, a.low), __fsub_rn(ou, a.mid), __fsub_rn(ov, a.mid));
+  oy = __fmul_rn(oy, a.post), ou = __fmul_rn(ou, a.post), ov = __fmul_rn(ov, a.post);
+  if (kI8) {
+    oy = __fadd_rn(oy, offy);
+    ou = __fadd_rn(ou, offc);
+    ov = __fadd_rn(ov, offc);
+  }
+  store_rgb(a, f, i, j, oy, ou, ov);
+}
+
+inline dim3 grid_of(int out_w, int out_h, int n) {
+  return dim3((out_w + kBlockX - 1) / kBlockX, (out_h + kBlockY - 1) / kBlockY, n);
 }
 
 template <typename T, bool kI8>
@@ -445,9 +535,7 @@ int launch(const LadderArgs* a, void* stream) {
       (size_t)a->h * a->w > 0x7fffffff || (size_t)a->ch * a->cw > 0x7fffffff ||
       (size_t)a->out_h * a->out_w > 0x7fffffff)  // 32-bit offsets inside a frame
     return (int)cudaErrorInvalidValue;
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((a->out_w + kBlockX - 1) / kBlockX,
-                  (a->out_h + kBlockY - 1) / kBlockY, a->n);
+  const dim3 block(kBlockX, kBlockY), grid = grid_of(a->out_w, a->out_h, a->n);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a->taps) {
     case 0: ladder_kernel<T, kI8, 0><<<grid, block, 0, s>>>(*a); break;
@@ -460,18 +548,26 @@ int launch(const LadderArgs* a, void* stream) {
 
 template <typename T, bool kI8>
 int launch_wire(const WireArgs* a, void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((a->out_w + 31) / 32, (a->out_h + 7) / 8, a->n);
-  wire_kernel<T, kI8><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+  if (a->n < 1 || a->n > 65535 || a->h < 2 || a->w < 2 || a->out_h < 1 ||
+      a->out_w < 1 || ((size_t)a->h + a->h / 2) * a->w > 0x7fffffff ||
+      (size_t)a->out_h * a->out_w > 0x7fffffff)  // 32-bit offsets inside a frame
+    return (int)cudaErrorInvalidValue;
+  const dim3 block(kBlockX, kBlockY), grid = grid_of(a->out_w, a->out_h, a->n);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (a->taps) {
+    case 0: wire_kernel<T, kI8, 0><<<grid, block, 0, s>>>(*a); break;
+    case 2: wire_kernel<T, kI8, 2><<<grid, block, 0, s>>>(*a); break;
+    case 4: wire_kernel<T, kI8, 4><<<grid, block, 0, s>>>(*a); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Each entry launches on `stream`, does
-// not synchronise, and returns cudaGetLastError() of its launch (the planar
-// entries return cudaErrorInvalidValue, without launching, for arguments they do
-// not take).
+// not synchronise, and returns cudaGetLastError() of its launch, or
+// cudaErrorInvalidValue, without launching, for arguments it does not take.
 extern "C" {
 int gmat_ladder_i8(const LadderArgs* a, void* stream) {
   return launch<uint8_t, true>(a, stream);

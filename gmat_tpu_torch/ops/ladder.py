@@ -30,11 +30,12 @@ caller passes `reference=True` (the counterpart of the JAX
 
 Crop, gaussian smooth and flip fold into the four resample matrices on
 the host (numpy, once per geometry), so the kernels never see them.  The
-host hands each matrix over in band form and, for the planar kernel, as
-window records padded to 2 or 4 taps (`_window_operands`: the kernel's
-instance for the geometry's widest window); `_prepared` keeps one
-argument template per (kind, geometry, device, epilogue constants) that
-each call copies and patches with its planes, output and batch size.
+host hands each matrix over in band form and as window records padded to
+2 or 4 taps (`_window_operands`: the kernel's instance for the
+geometry's widest window; the wire kernels' chroma records index U,V
+pairs); `_prepared` and `_wire_prepared` keep one argument template per
+(kind, geometry, device, epilogue constants) that each call copies and
+patches with its planes, output and batch size.
 """
 from __future__ import annotations
 
@@ -455,10 +456,15 @@ TAPS = (2, 4)
 
 @lru_cache(maxsize=32)
 def _kernel_operands(kind: str, geom: tuple, device: str) -> dict:
-    """Band-form operands, and the window records of the planar kernel's
-    instance for this geometry (`_window_operands`), uploaded once per
-    (kind, geometry, device)."""
-    m = _ladder_matrices(kind, geom)
+    """The planar kernel's operands for one geometry (`_device_operands`),
+    uploaded once per (kind, geometry, device)."""
+    return _device_operands(kind, _ladder_matrices(kind, geom), device)
+
+
+def _device_operands(kind: str, m: dict, device: str) -> dict:
+    """Band-form operands of the matrices `m` of `_row_col_operands`, and
+    the window records of the kernel's instance for them
+    (`_window_operands`), on `device`."""
     ops = _band_operands(kind, m, device)
     win = _window_operands(kind, m)
     ops["taps"] = win["taps"]
@@ -482,7 +488,7 @@ def _bits(a: np.ndarray) -> np.ndarray:
 
 
 def _window_operands(kind: str, m: dict) -> dict:
-    """The planar kernel's window records for the operands `m` of
+    """The kernels' window records for the operands `m` of
     `_row_col_operands`, as numpy.  `taps` is the first of TAPS that holds
     the widest band window of the four matrices (0: none does, and the
     kernel walks the bands).  rows (out_h, 8 + 2 taps) int32: luma and
@@ -561,20 +567,29 @@ class _LadderArgs(ctypes.Structure):
                 + [("shift", ctypes.c_float * 3)])
 
 
+def _operand_fields(ops: dict) -> tuple:
+    """The band records and the off_y, off_c, rows, cols pointers of
+    kernel operands, in the order LadderArgs and WireArgs hold them."""
+    return (*(_band_arg(ops, k) for k in ("row_y", "col_y", "row_c",
+                                          "col_c")),
+            *(ops[k].data_ptr() if k in ops else None
+              for k in ("off_y", "off_c", "rows", "cols")))
+
+
+def _epilogue_fields(c: dict) -> tuple:
+    """The epilogue constants, in the order of the structs' last fields."""
+    return ((ctypes.c_float * 9)(*c["mat"].reshape(-1).tolist()),
+            c["low"], c["mid"], c["maxv"], c["inv_norm"],
+            (ctypes.c_float * 3)(*c["shift"]))
+
+
 def _args_template(dims: tuple, ops: dict, c: dict) -> _LadderArgs:
     """Kernel arguments for planes of dims (h, w, ch, cw, out_h, out_w):
     the operands' pointers, the instance and the epilogue constants; the
     planes, output and batch size are patched in per call (`_patch`)."""
-    ptr = [ops[k].data_ptr() if k in ops else None
-           for k in ("off_y", "off_c", "rows", "cols")]
-    return _LadderArgs(
-        None, None, None, None,
-        *(_band_arg(ops, k) for k in ("row_y", "col_y", "row_c", "col_c")),
-        *ptr, 0, *dims, ops["taps"],
-        ops.get("inv_sy", 1.0), ops.get("inv_sc", 1.0),
-        (ctypes.c_float * 9)(*c["mat"].reshape(-1).tolist()),
-        c["low"], c["mid"], c["maxv"], c["inv_norm"],
-        (ctypes.c_float * 3)(*c["shift"]))
+    return _LadderArgs(None, None, None, None, *_operand_fields(ops), 0,
+                       *dims, ops["taps"], ops.get("inv_sy", 1.0),
+                       ops.get("inv_sc", 1.0), *_epilogue_fields(c))
 
 
 def _patch(args: _LadderArgs, y, u, v, out) -> _LadderArgs:
@@ -608,11 +623,28 @@ _ENTRIES = {("i8", torch.uint8): ("ladder_i8", "gmat_ladder_i8"),
 
 @lru_cache(maxsize=4)
 def _checked(lib) -> ctypes.CDLL:
-    """The kernel library, once its LadderArgs is known to match ours."""
-    if lib.gmat_ladder_args_size() != ctypes.sizeof(_LadderArgs):
-        raise RuntimeError("_LadderArgs does not match LadderArgs in "
-                           "csrc/ladder.cu")
+    """The kernel library, once its LadderArgs and WireArgs are known to
+    match our mirrors."""
+    for mirror, size in ((_LadderArgs, lib.gmat_ladder_args_size),
+                         (_WireArgs, lib.gmat_wire_args_size)):
+        if size() != ctypes.sizeof(mirror):
+            raise RuntimeError(f"{mirror.__name__} does not match "
+                               f"{mirror.__name__[1:]} in csrc/ladder.cu")
     return lib
+
+
+def _call(fn, args, device: torch.device, name: str) -> None:
+    """Launch C entry `fn` on `args` on the current stream of `device`;
+    raises if the launch failed, else counts it."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        err = fn(ctypes.byref(args), stream)
+    else:   # the kernel launches on the current device
+        with torch.cuda.device(device):
+            err = fn(ctypes.byref(args), stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: {_build.error_string(err)}")
+    LAUNCHES[name] += 1
 
 
 def _launch(kind: str, y, u, v, geom: tuple, c: dict) -> torch.Tensor:
@@ -642,16 +674,8 @@ def _launch(kind: str, y, u, v, geom: tuple, c: dict) -> torch.Tensor:
     _ops, template = _prepared(kind, geom, str(y.device), c["key"])
     out = torch.empty((y.shape[0], 3, geom[4], geom[5]), dtype=torch.float32,
                       device=y.device)
-    args = _patch(_LadderArgs.from_buffer_copy(template), y, u, v, out)
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    if y.device.index == torch.cuda.current_device():
-        err = fn(ctypes.byref(args), stream)
-    else:   # the kernel launches on the current device
-        with torch.cuda.device(y.device):
-            err = fn(ctypes.byref(args), stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: {_build.error_string(err)}")
-    LAUNCHES[name] += 1
+    _call(fn, _patch(_LadderArgs.from_buffer_copy(template), y, u, v, out),
+          y.device, name)
     return out
 
 
@@ -669,19 +693,22 @@ def _wire_plain_operands(kind: str, geom: tuple, device: str) -> dict:
 
 @lru_cache(maxsize=32)
 def _wire_kernel_operands(kind: str, geom: tuple, device: str) -> dict:
-    """Band-form operands of a wire kernel: the chroma column band is the
-    planar one (W/2 inputs), which the kernel walks over U,V pairs."""
-    return _band_operands(_WIRE[kind].row, _wire_matrices(kind, geom),
-                          device)
+    """A wire kernel's operands (`_device_operands` of its matrices): the
+    chroma columns are the planar ones (W/2 inputs), so a chroma column
+    index, and a window record's first chroma column, is a U,V pair
+    index."""
+    return _device_operands(_WIRE[kind].row, _wire_matrices(kind, geom),
+                            device)
 
 
 class _WireArgs(ctypes.Structure):
     """Mirror of `struct WireArgs` in csrc/ladder.cu."""
     _fields_ = ([(k, ctypes.c_void_p) for k in ("yuv", "out")]
                 + [(k, _Band) for k in ("row_y", "col_y", "row_c", "col_c")]
-                + [(k, ctypes.c_void_p) for k in ("off_y", "off_c")]
+                + [(k, ctypes.c_void_p) for k in ("off_y", "off_c", "rows",
+                                                  "cols")]
                 + [(k, ctypes.c_int32) for k in ("n", "h", "w", "out_h",
-                                                  "out_w")]
+                                                  "out_w", "taps")]
                 + [(k, ctypes.c_float) for k in ("inv_sy", "inv_sc", "post")]
                 + [("mat", ctypes.c_float * 9)]
                 + [(k, ctypes.c_float) for k in ("low", "mid", "maxv",
@@ -689,19 +716,34 @@ class _WireArgs(ctypes.Structure):
                 + [("shift", ctypes.c_float * 3)])
 
 
+def _wire_template(kind: str, dims: tuple, ops: dict, c: dict) -> _WireArgs:
+    """Wire kernel arguments for surfaces of dims (h, w, out_h, out_w) (see
+    `_args_template`); the surface, output and batch size are patched in
+    per call (`_wire_patch`)."""
+    return _WireArgs(None, None, *_operand_fields(ops), 0, *dims,
+                     ops["taps"], ops.get("inv_sy", 1.0),
+                     ops.get("inv_sc", 1.0), _WIRE[kind].post,
+                     *_epilogue_fields(c))
+
+
+def _wire_patch(args: _WireArgs, yuv, out) -> _WireArgs:
+    args.yuv, args.out = yuv.data_ptr(), out.data_ptr()
+    args.n = yuv.shape[0]
+    return args
+
+
 def _wire_args(kind: str, yuv, out, ops: dict, c: dict) -> _WireArgs:
-    """Kernel arguments of a wire kernel (see `_ladder_args`)."""
-    off = ("off_y", "off_c")
-    return _WireArgs(
-        yuv.data_ptr(), out.data_ptr(),
-        *(_band_arg(ops, k) for k in ("row_y", "col_y", "row_c", "col_c")),
-        *(ops[k].data_ptr() if k in ops else None for k in off),
-        yuv.shape[0], yuv.shape[1] * 2 // 3, yuv.shape[2],
-        out.shape[2], out.shape[3],
-        ops.get("inv_sy", 1.0), ops.get("inv_sc", 1.0), _WIRE[kind].post,
-        (ctypes.c_float * 9)(*c["mat"].reshape(-1).tolist()),
-        c["low"], c["mid"], c["maxv"], c["inv_norm"],
-        (ctypes.c_float * 3)(*c["shift"]))
+    """Wire kernel arguments built afresh (see `_ladder_args`)."""
+    dims = (yuv.shape[1] * 2 // 3, yuv.shape[2], out.shape[2], out.shape[3])
+    return _wire_patch(_wire_template(kind, dims, ops, c), yuv, out)
+
+
+@lru_cache(maxsize=32)
+def _wire_prepared(kind: str, geom: tuple, device: str, key: tuple) -> tuple:
+    """A wire kernel's operands for one geometry and its argument template
+    for the epilogue constants `key` (see `_prepared`)."""
+    ops = _wire_kernel_operands(kind, geom, device)
+    return ops, _wire_template(kind, geom[:4], ops, _epilogue_of(*key))
 
 
 def _launch_wire(kind: str, yuv, geom: tuple, c: dict) -> torch.Tensor:
@@ -721,20 +763,15 @@ def _launch_wire(kind: str, yuv, geom: tuple, c: dict) -> torch.Tensor:
                          "to a U,V pair")
     if not 0 < yuv.shape[0] <= 65535:
         raise ValueError(f"batch {yuv.shape[0]} outside 1..65535")
-    lib = _build.library()
-    if lib.gmat_wire_args_size() != ctypes.sizeof(_WireArgs):
-        raise RuntimeError("_WireArgs does not match WireArgs in "
-                           "csrc/ladder.cu")
-    ops = _wire_kernel_operands(kind, geom, str(yuv.device))
+    if yuv.shape[1] * yuv.shape[2] >= 1 << 31:
+        raise ValueError(f"frame {tuple(yuv.shape[1:])} has 2**31 samples or "
+                         "more")
+    fn = getattr(_checked(_build.library()), _WIRE[kind].entry)
+    _ops, template = _wire_prepared(kind, geom, str(yuv.device), c["key"])
     out = torch.empty((yuv.shape[0], 3, geom[2], geom[3]),
                       dtype=torch.float32, device=yuv.device)
-    args = _wire_args(kind, yuv, out, ops, c)
-    with torch.cuda.device(yuv.device):
-        err = getattr(lib, _WIRE[kind].entry)(
-            ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: {_build.error_string(err)}")
-    LAUNCHES[name] += 1
+    _call(fn, _wire_patch(_WireArgs.from_buffer_copy(template), yuv, out),
+          yuv.device, name)
     return out
 
 

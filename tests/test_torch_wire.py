@@ -2,12 +2,14 @@
 package: the plain versions of kernels K6/K7/K8 against the Pallas kernels
 in interpret mode, the JAX package's own wire-vs-planar invariants held in
 the port, the operands entry by entry, and a numpy walk of the CUDA
-kernels' wire-layout loops.
+kernels' wire-layout loops and of the wire kernel's schedule.
 
 Bounds (u8 LSBs): K7's int8 row stage is exact, so its plain version and
 the Pallas kernel round the same f32 values: 0.01 (as K1).  K6 and K8 sum
 the bf16 row stage in f32 and may round to the neighbouring bf16 value in
 another summation order: 1 (as K2)."""
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from gmat_tpu.core.frame import FrameBatch as JFrameBatch, pack_nv12 as jpack
 from gmat_tpu.ops import pallas_kernels as jpk
 from gmat_tpu_torch.core.frame import FrameBatch, pack_nv12
 from gmat_tpu_torch.ops import ladder
+from tests.test_torch_ladder import _Memory, _bf16, _cu_const
 
 K6_LSB, K7_LSB, K8_LSB = 1.0, 0.01, 1.0
 WIRE_VS_PLANAR_LSB = 1.0        # test_pallas.py:91-101, 206-220, 308-326
@@ -320,6 +323,296 @@ def test_wire_walk_matches_plain(rng, kind, geom):
         c).numpy()
     got = _wire_walk(kind, wire, geom, c)
     assert _lsb(got, want, norm) <= 1e-3
+
+
+def _wire_kernel_walk(kind, wire, geom, c):
+    """numpy walk of csrc/ladder.cu's wire kernel over the arguments
+    `_wire_args` builds, reading every operand through its pointer: the
+    grid of blocks (kBlockX output columns x kBlockY rows of one frame),
+    one pixel a thread with its column and row records and two windows:
+    luma (u8 windows of 3-4 taps as two aligned 32-bit words a row,
+    funnel-shifted, both inside the tensor; otherwise a load per sample)
+    and a window of U,V pairs, one pair-aligned load a pair; taps 0 walks
+    the band records.  The sums in the kernel's order and rounding, scaled
+    by `post`, then the int8 offsets and the epilogue.  Returns the output
+    and how many times each element was written."""
+    bx_, by_ = _cu_const("kBlockX"), _cu_const("kBlockY")
+    row_kind = ladder._WIRE[kind].row
+    ops = ladder._wire_kernel_operands(kind, geom, "cpu")
+    n, oh, ow = wire.shape[0], geom[2], geom[3]
+    out = torch.full((n, 3, oh, ow), float("nan"))
+    a = ladder._wire_args(kind, wire, out, ops, c)
+    taps, item = a.taps, wire.element_size()
+    tensors = [wire] + [ops[k] for k in ("off_y", "off_c", "rows", "cols")
+                        if k in ops]
+    tensors += [t for k in ("row_y", "col_y", "row_c", "col_c")
+                for t in ops[k]]
+    mem = _Memory(tensors)
+    end = wire.data_ptr() + wire.numel() * item
+    f32 = np.float32
+
+    def i32(addr):
+        return int(np.uint32(mem.sample(addr, 4)).view(np.int32))
+
+    def bf16_at(addr):
+        return np.uint32(mem.sample(addr, 2) << 16).view(f32)
+
+    def i8_at(addr):
+        return int(np.uint8(mem.sample(addr, 1)).view(np.int8))
+
+    def luma_window(addr):
+        x = []
+        for r in range(taps):
+            at = addr + r * a.w * item
+            if item == 1 and taps > 2:
+                q = at & ~3
+                assert q + 8 <= end, "a luma word past the tensor's end"
+                s = ((mem.word(q + 4) << 32 | mem.word(q)) >> (8 * (at & 3))) \
+                    & 0xffffffff
+                x.append([(s >> (8 * b)) & 0xff for b in range(taps)])
+            else:
+                x.append([mem.sample(at + b * item, item)
+                          for b in range(taps)])
+        return x
+
+    def pair_window(addr):
+        xu, xv = [], []
+        for r in range(taps):
+            at = addr + r * a.w * item
+            pairs = []
+            for b in range(taps):
+                assert (at + 2 * b * item) % (2 * item) == 0
+                pairs.append(mem.sample(at + 2 * b * item, 2 * item))
+            xu.append([p & ((1 << 8 * item) - 1) for p in pairs])
+            xv.append([p >> 8 * item for p in pairs])
+        return xu, xv
+
+    def value(x, rw, bias, cw, inv_s):
+        acc = f32(0)
+        for b in range(taps):
+            if row_kind == "i8":
+                t = bias + sum(rw[r] * x[r][b] for r in range(taps))
+                tb = _bf16(f32(t) * f32(inv_s))
+            else:
+                t = f32(0)
+                for r in range(taps):
+                    xs = f32(x[r][b]) if item == 1 else _bf16(x[r][b])
+                    p = f32(np.int32(rw[r]).view(f32)) * xs       # exact
+                    t = p if r == 0 else f32(t + p)
+                tb = _bf16(t)
+            p = f32(tb * cw[b])                                   # exact
+            acc = p if b == 0 else f32(acc + p)
+        return acc
+
+    def band(bd, idx, wsize):
+        lo, ln = i32(bd.lo + 4 * idx), i32(bd.len + 4 * idx)
+        at = bd.wts + idx * bd.stride * wsize
+        wts = [i8_at(at + k) if wsize == 1 else bf16_at(at + 2 * k)
+               for k in range(ln)]
+        return lo, wts
+
+    def band_value(base, step, i, j, row, col, inv_s):
+        """resample_px / resample_uv_px: `step` samples a column."""
+        rsize = 1 if row_kind == "i8" else 2
+        (h0, rw), (w0, cw) = band(row, i, rsize), band(col, j, 2)
+        acc = f32(0)
+        for b, cb in enumerate(cw):
+            xs = [mem.sample(base + ((h0 + r) * a.w + step * (w0 + b)) * item,
+                             item) for r in range(len(rw))]
+            if row_kind == "i8":
+                t = sum(w * (x - 128) for w, x in zip(rw, xs))
+                tb = _bf16(f32(t) * f32(inv_s))
+            else:
+                t = f32(0)
+                for w, x in zip(rw, xs):
+                    t = f32(t + f32(w) * _bf16(x))
+                tb = _bf16(t)
+            acc = f32(acc + f32(tb) * f32(cb))
+        return acc
+
+    writes = np.zeros(out.shape, int)
+    m = c["mat"]
+    luma, pitch = a.h * a.w, a.w // 2
+    grid = (-(-ow // bx_), -(-oh // by_), n)
+    for f, gy, gx, ty, tx in np.ndindex(grid[2], grid[1], grid[0], by_, bx_):
+        i, j = gy * by_ + ty, gx * bx_ + tx
+        if i >= oh or j >= ow:
+            continue
+        y = a.yuv + f * (luma + luma // 2) * item
+        uv = y + luma * item
+        if taps:
+            rec = [i32(a.rows + 4 * ((8 + 2 * taps) * i + k))
+                   for k in range(8 + 2 * taps)]
+            cy, cc = (i32(a.cols + 4 * (k * ow + j)) for k in range(2))
+            cwy, cwc = ([np.int32(i32(a.cols + 4 * ((2 + k) * ow + j)))
+                         .view(f32) for k in ks]
+                        for ks in (range(taps), range(taps, 2 * taps)))
+            assert 0 <= rec[0] <= a.h - taps and 0 <= cy <= a.w - taps
+            assert 0 <= rec[1] <= a.h // 2 - taps and 0 <= cc <= pitch - taps
+            xy = luma_window(y + (rec[0] * a.w + cy) * item)
+            xu, xv = pair_window(uv + 2 * (rec[1] * pitch + cc) * item)
+            ry, rc = rec[4:4 + taps], rec[4 + taps:4 + 2 * taps]
+            by = rec[4 + 2 * taps] if row_kind == "i8" else 0
+            bc = rec[5 + 2 * taps] if row_kind == "i8" else 0
+            o = [value(xy, ry, by, cwy, a.inv_sy),
+                 value(xu, rc, bc, cwc, a.inv_sc),
+                 value(xv, rc, bc, cwc, a.inv_sc)]
+            offs = [np.int32(rec[k]).view(f32) for k in (2, 3, 3)]
+        else:
+            o = [band_value(y, 1, i, j, a.row_y, a.col_y, a.inv_sy),
+                 band_value(uv, 2, i, j, a.row_c, a.col_c, a.inv_sc),
+                 band_value(uv + item, 2, i, j, a.row_c, a.col_c, a.inv_sc)]
+            if row_kind == "i8":
+                offs = [np.uint32(mem.sample(p + 4 * i, 4)).view(f32)
+                        for p in (a.off_y, a.off_c, a.off_c)]
+        o = [f32(v * f32(a.post)) for v in o]
+        if row_kind == "i8":
+            o = [f32(v + off) for v, off in zip(o, offs)]
+        yy, uu, vv = (f32(o[0] - c["low"]), f32(o[1] - c["mid"]),
+                      f32(o[2] - c["mid"]))
+        for k in range(3):
+            s = f32(f32(m[k, 0] * yy + m[k, 1] * uu) + m[k, 2] * vv)
+            s = min(max(s, f32(0)), f32(c["maxv"]))
+            out[f, k, i, j] = float(f32(s - f32(c["shift"][k]))
+                                    * f32(c["inv_norm"]))
+            writes[f, k, i, j] += 1
+    return out.numpy(), writes
+
+
+def _offset_wire(wire, offset):
+    """A contiguous copy of the wire batch whose data pointer sits `offset`
+    samples past an allocation that ends with its last sample."""
+    t = torch.from_numpy(wire)
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+_KERNEL_WALKS = {   # name: (geometry (h, w, out_h, out_w, method), taps)
+    "bilinear": ((24, 40, 9, 7, "bilinear"), 2),
+    # 70 -> 20 columns, 35 U,V pairs a row: odd W/2, every word phase
+    "bilinear_odd_pairs": ((16, 70, 6, 20, "bilinear"), 2),
+    "nearest_upscale": ((12, 22, 17, 35, "nearest"), 2),
+    "area_2to1": ((24, 36, 12, 18, "area"), 2),
+    # 4-tap windows: luma two words a row, chroma 4 x 4 pairs
+    "bicubic": ((16, 40, 10, 12, "bicubic"), 4),
+    "bicubic_odd_pairs": ((20, 26, 9, 11, "bicubic"), 4),
+    # windows wider than 4 take the band walk
+    "lanczos3": ((24, 40, 9, 7, "lanczos3"), 0),
+    "area_wide": ((30, 50, 6, 9, "area"), 0),
+}
+
+
+@pytest.mark.parametrize("kind", ["nv12", "nv12_i8", "p010"])
+@pytest.mark.parametrize("case", list(_KERNEL_WALKS))
+def test_wire_kernel_walk_matches_plain(rng, kind, case):
+    """The wire kernel's schedule (tiles, each thread's records, luma words
+    with funnel shifts, U,V pair windows, the tap-count instances and the
+    band walk) writes every output once, keeps every load inside the wire
+    batch, and gives the plain version's numbers bit for bit, over two
+    frames at an unaligned pointer and with dirty P010 low bits."""
+    geom, taps = _KERNEL_WALKS[case]
+    h, w = geom[:2]
+    if kind == "p010":
+        wire = rng.integers(0, 1 << 16, (2, h * 3 // 2, w)).astype(np.uint16)
+        bits, norm, offset = 10, 1023.0, 2
+    else:
+        wire = rng.integers(0, 256, (2, h * 3 // 2, w)).astype(np.uint8)
+        bits, norm, offset = 8, 255.0, 6
+    wire = _offset_wire(wire, offset)
+    assert ladder._wire_kernel_operands(kind, geom, "cpu")["taps"] == taps
+    c = ladder._epilogue("bt601", bits, norm, (0.5, 0.0, 2.0))
+    got, writes = _wire_kernel_walk(kind, wire, geom, c)
+    assert (writes == 1).all()
+    want = ladder._WIRE_PLAIN[kind](
+        wire, ladder._wire_plain_operands(kind, geom, "cpu"), c).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+_WIRE_RECORD_GEOMS = [(1080, 1920, 224, 224, "bilinear"),
+                      (562, 998, 223, 225, "bilinear"),
+                      (562, 998, 223, 225, "bicubic"),
+                      (16, 70, 6, 20, "nearest"),
+                      (24, 36, 12, 18, "area")]
+
+
+@pytest.mark.parametrize("kind", ["nv12", "nv12_i8", "p010"])
+@pytest.mark.parametrize("geom", _WIRE_RECORD_GEOMS,
+                         ids=lambda g: f"{g[1]}x{g[0]}-{g[4]}")
+def test_wire_window_records_match_band(kind, geom):
+    """The wire window records are `_window` of the wire matrices, entry by
+    entry; every window lies inside its plane; the chroma first columns
+    are U,V pair indices: written back as dense interleave-aware matrices
+    (U at even samples, V at odd) they give the JAX builders' awu/awv."""
+    h, w, oh, ow = geom[:4]
+    m = ladder._wire_matrices(kind, geom)
+    ops = ladder._wire_kernel_operands(kind, geom, "cpu")
+    taps = ops["taps"]
+    assert taps in ladder.TAPS
+    rows, cols = ops["rows"].numpy(), ops["cols"].numpy()
+    assert rows.shape == (oh, 8 + 2 * taps) and cols.shape == (2 + 2 * taps, ow)
+    i8 = ladder._WIRE[kind].row == "i8"
+    recs = {"ahy": (rows[:, 0], rows[:, 4:4 + taps], h),
+            "ahc": (rows[:, 1], rows[:, 4 + taps:4 + 2 * taps], h // 2),
+            "awy": (cols[0], cols[2:2 + taps].T, w),
+            "awc": (cols[1], cols[2 + taps:].T, w // 2)}
+    for name, (lo, wts, n_in) in recs.items():
+        want_lo, want_w = ladder._window(np.ascontiguousarray(
+            m[name] if name.startswith("ah") else m[name].T), taps)
+        np.testing.assert_array_equal(lo, want_lo)
+        assert (lo >= 0).all() and (lo + taps <= n_in).all()
+        if not (i8 and name.startswith("ah")):
+            wts = wts.copy().view(np.float32)
+        np.testing.assert_array_equal(wts, want_w)
+    awu = np.zeros((w, ow), np.float32)
+    awv = np.zeros_like(awu)
+    cwc = cols[2 + taps:].view(np.float32)
+    for j in range(ow):
+        for k in range(taps):
+            awu[2 * (cols[1, j] + k), j] += cwc[k, j]
+            awv[2 * (cols[1, j] + k) + 1, j] += cwc[k, j]
+    np.testing.assert_array_equal(awu, m["awu"])
+    np.testing.assert_array_equal(awv, m["awv"])
+    if i8:
+        np.testing.assert_array_equal(rows[:, 2].view(np.float32), m["offy"])
+        np.testing.assert_array_equal(rows[:, 3].view(np.float32), m["offc"])
+        for k, name in ((0, "ahy"), (1, "ahc")):
+            np.testing.assert_array_equal(
+                rows[:, 4 + 2 * taps + k],
+                -128 * recs[name][1].astype(np.int64).sum(1))
+    else:
+        assert not rows[:, 2:4].any() and not rows[:, 4 + 2 * taps:].any()
+
+
+def test_wire_args_template_patched_per_call(rng):
+    """The ctypes mirror has the C layout, and the cached template, copied
+    and patched with a call's wire batch and output, equals the arguments
+    built afresh; the template itself stays unpatched."""
+    assert ctypes.sizeof(ladder._WireArgs) == 280
+    assert ladder._WireArgs.rows.offset == 160
+    assert ladder._WireArgs.n.offset == 176
+    assert ladder._WireArgs.taps.offset == 196
+    geom = (24, 40, 9, 7, "bilinear")
+    c = ladder._epilogue("bt601", 8, 255.0, [127.5, 127.5, 127.5])
+    for kind in ("nv12", "nv12_i8"):
+        ops, template = ladder._wire_prepared(kind, geom, "cpu", c["key"])
+        assert ops is ladder._wire_kernel_operands(kind, geom, "cpu")
+        assert ladder._wire_prepared(kind, geom, "cpu", c["key"])[1] \
+            is template
+        wire = torch.from_numpy(_nv12(_planes(rng, n=3, h=24, w=40)))
+        out = torch.empty((3, 3, 9, 7))
+        fresh = ladder._wire_args(kind, wire, out, ops, c)
+        patched = ladder._wire_patch(
+            ladder._WireArgs.from_buffer_copy(template), wire, out)
+        assert bytes(patched) == bytes(fresh)
+        assert (fresh.n, fresh.h, fresh.w, fresh.taps) == (3, 24, 40, 2)
+        assert fresh.rows == ops["rows"].data_ptr()
+        assert (fresh.off_y is not None) == (kind == "nv12_i8")
+        assert template.yuv is None and template.out is None
+        assert template.n == 0
+        assert bytes(template)[ladder._WireArgs.h.offset:] \
+            == bytes(fresh)[ladder._WireArgs.h.offset:]
 
 
 # ---------------------------------------------------------- validation
