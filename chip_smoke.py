@@ -6,11 +6,12 @@
 Builds the kernels (gmat_tpu_torch/csrc/ladder.cu and rungs.cu) with
 nvcc, runs the port's main paths at full size -- `preprocess_nchw` on a
 64 x 1080p yuv420p batch -> (64, 3, 224, 224) f32; the wire-format lane,
-the same batch as NV12 and a 10-bit one as P010 -> the same output; and
-the ABR ladder: a 96-frame 1080p Y4M file -> `decode_stream` ->
-`metrans.ladder_step` -> rung planes on the host, whose batches are also
-scene-scored -- and holds every kernel against its plain PyTorch version
-on the card:
+the same batch as NV12 and a 10-bit one as P010 -> the same output; the
+filter graph on a 32 x 1080p batch; and the ABR ladder: a 96-frame 1080p
+Y4M file -> `decode_stream` -> `metrans.ladder_step` -> rung planes on
+the host, whose batches are also scene-scored, and the same file through
+the filtered ABR path (common graph -> ladder -> rung graphs) -- and
+holds every kernel against its plain PyTorch version on the card:
 
   device           card name, compute capability, power limit, kernel build
   main_path        K1 (ladder_i8) through preprocess_nchw, quality gate vs
@@ -24,10 +25,23 @@ on the card:
                    plain version and its planar twin; K7 on 8 x 8K NV12
   wire_ragged      the wire kernels on 4 x 998x562 NV12 / P010 -> 225x223
                    (499 U,V pairs a row): K6 bilinear and bicubic, K7, K8
+  filter_graph     every ported filter (filters/builtin part 1) through
+                   FilterGraph on 32 x 1080p: each pure filter alone and
+                   the long FILTER_CHAIN, then yadif, bwdif, select, fps,
+                   trim, setpts and thumbnail on 3 batches of 4 frames
+                   with flush; outputs on the card, held against the CPU
+                   run on 4 frames (0 LSB, 1 for resamplers and
+                   conversions), ms per 32 x 1080p batch; then a 10-bit
+                   leg (12 x 960x544 yuv420p10: u16 planes on the card)
   abr_ladder       K4 through the ABR path on the 1080p ladder 720p/540p/360p,
                    where the int8 tap gate picks the bf16 rows (rungs_bf16);
                    rung files written and read back as Y4M
   abr_ladder_i8    the same path on 720p/360p, where it picks int8 (rungs_i8)
+  abr_filtered     the filtered ABR path (`metrans.filtered_step`): common
+                   yadif, K4-int8 on 720p/360p, eq + lutyuv + unsharp per
+                   rung; one rungs_i8 launch per batch (flush included),
+                   the first batch against the CPU run (0 LSB), source
+                   frames/s beside abr_ladder_i8's
   rungs_bf16       bf16 rows forced on the first batch, both ladders
   rungs_i8_forced  int8 rows forced on the 720p/540p/360p ladder
   rungs_wide       K5 (rungs_i8 at 8 x 4K) and a nearest-neighbour ladder
@@ -36,7 +50,8 @@ on the card:
   scene            scene_scores on the ABR source's batches on the card,
                    last frame and mafd carried across batches, against the
                    same calls on CPU copies; ms per 32 x 1080p batch
-  metrans_session  run_session with libx264 rungs, where libavcodec exists
+  metrans_session  run_session with libx264 rungs and abr_filtered's
+                   filters, where libavcodec exists
   smart_decode     FrameExtractor, FrameSelect and extract_to_torch on a
                    small libx264 clip, where libavcodec exists
   timing           CUDA-event medians: kernel, plain version, library call,
@@ -45,8 +60,9 @@ on the card:
                    registers and spills of the instance timed; for the rung
                    kernels GB/s and tiles
 
-Each phase prints one JSON line.  Then come the card's name and power
-limit (nvidia-smi), the kernels line, and last
+Each phase prints one JSON line, and `elapsed` the script's seconds.
+Then come the card's name and power limit (nvidia-smi), the kernels
+line, and last
 {"ok": true, "device": {...}}.  Any failed check raises: the script then
 exits non-zero and prints no result line.  Launch counters are zeroed
 just before each phase drives its path and read just after; launches made
@@ -100,6 +116,53 @@ LSB_RUNG_EXACT = {"i8": 3, "bf16": 1}
 LSB_TWIN = 1.0
 # scene scores on the card against the CPU: f32 sums in another order
 SCENE_RTOL = 1e-5
+# the filter graph: a 1080p batch through each filter of the GPU layer
+# alone and through one long chain, each against the port's own CPU run
+# on the first FILTER_CPU_FRAMES frames; (spec, bound in u8 LSBs): 0 for
+# integer filters, 1 for the f32 resamplers and conversions
+FILTER_BATCH, FILTER_CPU_FRAMES, FILTER_CUT = 32, 4, 6
+FILTER_CHAIN = ("crop=1920:1072:0:4,smooth=type=median:kw=5:kh=5,"
+                "rotate=angle=5,hflip,transpose=1,pad=iw+16:ih+16:8:8,"
+                "scale=1280:-2,eq=contrast=1.2,lutyuv=y=gammaval(0.9),"
+                "unsharp=5:5:0.8,format=rgbpf32le")
+PURE_FILTERS = (
+    ("crop=1920:1072:0:4", 0), ("crop_nvcv=1280:720", 0),
+    ("rotate=angle=5", 1), ("rotate_nvcv=30:cubic", 1),
+    ("rotate=angle=-12:interp=nearest", 1), ("pad=iw+16:ih+16:8:8", 0),
+    ("pad=2048:1152:-1:-1:0x3366CC", 0), ("eq=contrast=1.2:brightness=0.05",
+                                          0),
+    ("lut=c0=negval", 0), ("lutyuv=y=gammaval(0.9):u=val:v=val", 0),
+    ("format=rgb24,lutrgb=r=negval", 1), ("unsharp=5:5:0.8", 0),
+    ("flip=-1", 0), ("hflip", 0), ("vflip", 0), ("transpose=1", 0),
+    ("transpose_npp=dir=cclock", 0), ("smooth=type=median:kw=5:kh=5", 0),
+    ("smooth=gaussian:5:5:reflect101", 1), ("scale=1280:-2", 1),
+    ("scale_cuda=640:360:bicubic", 1), ("scale_npp=960:540:area", 1),
+    ("format=rgbpf32le", 1), ("format_cuda=yuv444p", 1), ("null", 0),
+    ("hwupload_cuda", 0), ("chromakey=0x00FF00:0.2:0.1", 1),
+    (FILTER_CHAIN, 1))
+# the stream and keep-mask filters: 3 batches of FILTER_CPU_FRAMES frames
+# (a scene cut at FILTER_CUT) through process and flush, card and CPU
+STREAM_FILTERS = ("yadif", "yadif=1", "bwdif", "bwdif=send_frame",
+                  r"select=gt(scene\,0.3)", "fps=15",
+                  "trim=start_frame=2:end_frame=9", "setpts=PTS-STARTPTS",
+                  "thumbnail=4")
+# the 10-bit leg (yuv420p10, u16 planes on the card, LEG_10BIT = (h, w)):
+# checked, not timed
+LEG_10BIT = (544, 960)
+PURE_FILTERS_10BIT = (
+    ("crop=960:536:0:4", 0), ("rotate=angle=5", 1),
+    ("pad=iw+16:ih+16:8:8:red", 0), ("lutyuv=y=negval:u=val*0.9", 0),
+    ("unsharp=5:5:0.8:5:5:0.4", 0), ("hflip", 0), ("transpose=1", 0),
+    ("smooth=type=median:kw=3:kh=3", 0), ("scale=640:-2", 1),
+    ("format=p010", 0), ("format=rgb48", 1))
+STREAM_FILTERS_10BIT = ("yadif=1", "bwdif=send_frame",
+                        r"select=gt(scene\,0.3)", "thumbnail=4",
+                        r"select=not(mod(n\,2)),yadif")
+# the filtered ABR path: perf.py:712's ladder (LADDER_1080_I8) between a
+# common yadif and perf.py:722-723's three rung filters
+ABR_COMMON = "yadif=0:-1:0"
+ABR_RUNG_FILTERS = ("eq=contrast=1.2:brightness=0.05,"
+                    "lutyuv=y=gammaval(0.9):u=val:v=val,unsharp=5:5:0.8")
 AV_LIBS = ("avformat", "avcodec", "avutil", "swscale", "swresample")
 # smart decode clip: test_extractor.py's, 60 frames with a cut at 30
 SMART_SIZE, SMART_FRAMES, SMART_CUT = (320, 240), 60, 30
@@ -433,7 +496,7 @@ def abr_ladder(phase, rungs, path, sizes, tmp):
          y4m_read_back=read_back, wall_s=wall,
          source_frames_per_s=frames / wall)
     return {"quant": quant, "counts": counts, "plain": plain,
-            "batches": batches}
+            "batches": batches, "fps": frames / wall}
 
 
 def rung_launcher(rungs, kind, y, u, v, geom):
@@ -495,6 +558,269 @@ def interpolate_rungs(y, u, v, sizes):
     return outs
 
 
+def filter_frames(n: int, seed: int):
+    """A 1080p yuv420p batch on the card: smooth_content's gradients,
+    moved a little from frame to frame, seeded noise, and a scene cut
+    (every plane inverted) from frame FILTER_CUT on."""
+    from gmat_tpu_torch.core.frame import FrameBatch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    step = (torch.arange(n, device="cuda", dtype=torch.int32) % 8 * 2
+            ).reshape(-1, 1, 1)
+    planes = {}
+    for k, base in zip("yuv", smooth_content(H, W)):
+        b = torch.as_tensor(base, device="cuda").to(torch.int32)
+        x = b + step + torch.randint(-4, 5, (n,) + tuple(b.shape[1:]),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)
+        x[FILTER_CUT:] = 255 - x[FILTER_CUT:]
+        planes[k] = torch.clamp(x, 0, 255).to(torch.uint8)
+    return FrameBatch(planes, "yuv420p", W, H).validate()
+
+
+def on_card(fb) -> bool:
+    return all(v.device.type == "cuda" for v in fb.planes.values())
+
+
+def head_cpu(fb, n: int):
+    """The first n frames of a batch, copied to the host."""
+    return fb.with_planes({k: v[:n].cpu() for k, v in fb.planes.items()})
+
+
+def planes_lsb(got, want) -> float:
+    """Largest difference of two batches' planes in u8 LSBs (float planes
+    are RGB in [0, 1]); their formats, sizes and dtypes must agree."""
+    check((got.format, got.width, got.height, sorted(got.planes))
+          == (want.format, want.width, want.height, sorted(want.planes)),
+          f"{got.format} {got.width}x{got.height} vs {want.format} "
+          f"{want.width}x{want.height}")
+    worst = 0.0
+    for k, b in want.planes.items():
+        a = got.planes[k].cpu()
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"plane {k}: {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} "
+              f"{b.dtype}")
+        if a.numel() == 0:
+            continue
+        if b.is_floating_point():
+            d = float((a - b).abs().max()) * 255.0
+        else:
+            d = float((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+        worst = max(worst, d)
+    return worst
+
+
+def pure_filter(spec: str, fb, tol: float):
+    """One pure filter on a card batch: every frame out, on the card, the
+    first FILTER_CPU_FRAMES within `tol` LSB of the CPU run.  Returns the
+    graph, the output and its error."""
+    from gmat_tpu_torch.filters.graph import FilterGraph
+    g = FilterGraph(spec)
+    out, keep = g.process(fb)
+    torch.cuda.synchronize()
+    check(on_card(out) and out.batch == fb.batch and keep.all(),
+          f"filter {spec} on {fb.format}: output off the card or frames "
+          "lost")
+    want, _ = FilterGraph(spec).process(head_cpu(fb, FILTER_CPU_FRAMES))
+    err = planes_lsb(head_cpu(out, FILTER_CPU_FRAMES), want)
+    check(err <= tol, f"filter {spec} on {fb.format} vs CPU: {err} LSB > "
+          f"{tol}")
+    return g, out, err
+
+
+def stream_filter(spec: str, fb):
+    """A stream or keep-mask filter on the first 3 x FILTER_CPU_FRAMES
+    frames of a card batch, as 3 batches through process and then flush,
+    on the card and on the CPU: every output, keep mask and pts equal (0
+    LSB).  Returns (frames kept, fps_mul)."""
+    from gmat_tpu_torch.filters.graph import FilterGraph
+    n = FILTER_CPU_FRAMES
+    graphs = {"card": FilterGraph(spec), "cpu": FilterGraph(spec)}
+    outs = {"card": [], "cpu": []}
+    for b in range(3):
+        part = fb.with_planes({k: v[b * n:(b + 1) * n]
+                               for k, v in fb.planes.items()})
+        pts = np.arange(b * n, (b + 1) * n)
+        meta = dict(pts=pts, times=pts / 30.0,
+                    keys=(pts % 5 == 0).astype(np.int64))
+        for dev, src in (("card", part), ("cpu", head_cpu(part, n))):
+            out, keep = graphs[dev].process(src, **meta)
+            outs[dev].append((out, keep, graphs[dev].out_pts))
+    for dev, g in graphs.items():
+        outs[dev] += [(o, k, m.get("pts")) for o, k, m in g.flush()]
+    check(len(outs["card"]) == len(outs["cpu"]),
+          f"filter {spec} on {fb.format}: {len(outs['card'])} outputs on "
+          f"the card, {len(outs['cpu'])} on the CPU")
+    kept = 0
+    for (o, k, p), (oh, kh, ph) in zip(outs["card"], outs["cpu"]):
+        check(on_card(o), f"filter {spec} on {fb.format}: output off the "
+              "card")
+        check(np.array_equal(k, kh) and (p is None) == (ph is None)
+              and (p is None or np.array_equal(p, ph)),
+              f"filter {spec} on {fb.format}: keep masks or pts differ "
+              "from the CPU")
+        err = planes_lsb(o, oh)
+        check(err == 0, f"filter {spec} on {fb.format} vs CPU: {err} LSB")
+        kept += int(np.count_nonzero(k))
+    return kept, graphs["card"].fps_mul
+
+
+def filter_graph_phase():
+    """Every ported filter on the card: each pure filter alone and the
+    long chain on a 32 x 1080p batch, the stream and keep-mask filters on
+    a 3-batch sequence through process and flush; every output held
+    against the port's own CPU run on the same frames and timed at
+    32 x 1080p (ms per batch, median of 3 single calls).  Then the 10-bit
+    leg: the filters that take 16-bit planes on a yuv420p10 cut of the
+    batch, checked, not timed."""
+    from gmat_tpu_torch.filters.graph import FilterGraph
+    t_phase = time.perf_counter()
+    fb = filter_frames(FILTER_BATCH, SEED + 7)
+    pure = {}
+    for spec, tol in PURE_FILTERS:
+        g, out, err = pure_filter(spec, fb, tol)
+        ms, runs, host = event_ms(lambda i: g.process(fb), calls=1, reps=3)
+        pure[spec] = {"out": f"{out.format} {out.width}x{out.height}",
+                      "max_lsb_vs_cpu": err, "bound_lsb": tol,
+                      "ms_per_batch": ms, "runs_ms": runs, "host_ms": host}
+        del out
+    stream = {}
+    for spec in STREAM_FILTERS:
+        kept, fps_mul = stream_filter(spec, fb)
+        g = FilterGraph(spec)
+        ms, runs, host = event_ms(
+            lambda i: g.process(fb, pts=np.arange(i * FILTER_BATCH,
+                                                  (i + 1) * FILTER_BATCH),
+                                times=np.arange(FILTER_BATCH) / 30.0),
+            calls=1, reps=3)
+        stream[spec] = {"frames_in": 3 * FILTER_CPU_FRAMES,
+                        "frames_out": kept, "fps_mul": fps_mul,
+                        "max_lsb_vs_cpu": 0, "ms_per_batch": ms,
+                        "runs_ms": runs, "host_ms": host}
+    # the 10-bit leg: the same content at 10 bits (x << 2 | 2), its first
+    # 3 x FILTER_CPU_FRAMES frames cut to 960x544 (the CPU references
+    # stay short)
+    n, (h, w) = 3 * FILTER_CPU_FRAMES, LEG_10BIT
+    planes10 = {}
+    for k, v in fb.planes.items():
+        sub = 0 if k == "y" else 1          # 4:2:0 chroma
+        cut = v[:n, :h >> sub, :w >> sub].to(torch.int32)
+        planes10[k] = ((cut << 2) | 2).to(torch.uint16)
+    fb10 = fb.with_planes(planes10, "yuv420p10", w, h)
+    del fb
+    leg10 = {}
+    for spec, tol in PURE_FILTERS_10BIT:
+        leg10[spec] = {"max_lsb_vs_cpu": pure_filter(spec, fb10, tol)[2],
+                       "bound_lsb": tol}
+    for spec in STREAM_FILTERS_10BIT:
+        leg10[spec] = {"frames_out": stream_filter(spec, fb10)[0],
+                       "max_lsb_vs_cpu": 0}
+    emit("filter_graph", source=[FILTER_BATCH, H, W], scene_cut=FILTER_CUT,
+         cpu_frames=FILTER_CPU_FRAMES, pure=pure, stream=stream,
+         yuv420p10={"source": [n, h, w], **leg10},
+         phase_s=time.perf_counter() - t_phase)
+
+
+def abr_filtered(rungs, path, sizes, bare_fps):
+    """The filtered ABR path once: the Y4M file -> decode_stream -> the
+    common graph (yadif, send_frame) -> metrans.filtered_step's
+    ladder_step on the int8 ladder -> each rung's eq, lutyuv and unsharp
+    -> rung planes on the host.  One rungs_i8 launch per batch, flushed
+    batches included; every frame of the first batch's rungs equals the
+    same steps run on the CPU (the rung kernel's plain version) on the
+    whole first batch.  Returns the launch counts."""
+    from gmat_tpu_torch.apps import metrans
+    from gmat_tpu_torch.av.ingest import decode_stream
+    from gmat_tpu_torch.core.frame import FrameBatch
+    from gmat_tpu_torch.filters.graph import FilterGraph
+    tb = 1.0 / 30.0
+    common = FilterGraph(ABR_COMMON, 30.0)
+    graphs = [FilterGraph(ABR_RUNG_FILTERS, 30.0) for _ in sizes]
+    kept = [0] * len(sizes)
+
+    def to_host(outs):
+        host = []
+        for r, (rb, keep) in enumerate(outs):
+            if rb is None:
+                host.append(None)
+                continue
+            check(on_card(rb) and rb.format == "yuv420p"
+                  and (rb.width, rb.height) == sizes[r],
+                  f"abr_filtered: rung {r} is {rb.format} {rb.width}x"
+                  f"{rb.height}, on the card: {on_card(rb)}")
+            idx = torch.as_tensor(np.nonzero(keep)[0], device=rb.device)
+            host.append({k: rb.planes[k][idx].cpu() for k in "yuv"})
+            kept[r] += len(idx)
+        return host
+
+    t_phase = time.perf_counter()
+    zero_counts(rungs)
+    t0 = time.perf_counter()
+    steps = frames_in = 0
+    first = None
+    for fb, pts, valid in decode_stream(path, batch=ABR_BATCH):
+        if first is None:
+            # a copy on the card (the ingest ring reuses its buffers),
+            # moved to the host after the timed loop
+            first = (fb.with_planes({k: v.clone()
+                                     for k, v in fb.planes.items()}),
+                     pts.copy(), int(valid))
+        outs = metrans.filtered_step(fb, pts, valid, sizes, common, graphs,
+                                     {"times": pts * tb}, tb)
+        check(common.out_pts is not None and len(common.out_pts) > 0,
+              "abr_filtered: the common graph emitted nothing")
+        host = to_host(outs)
+        if steps == 0:
+            first_out = host
+        steps += 1
+        frames_in += int(valid)
+    for fb, keep, meta in common.flush():
+        fpts = meta["pts"]
+        to_host(metrans.rung_step(fb, keep, fpts, {"times": fpts * tb},
+                                  sizes, graphs))
+        steps += 1
+    check(all(not g.flush() for g in graphs), "abr_filtered: rung flush")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(rungs.LAUNCHES)
+    check(counts == {"rungs_i8": steps, "rungs_bf16": 0},
+          f"abr_filtered launches {counts}, want {steps} rungs_i8")
+    check(frames_in == ABR_FRAMES and kept == [frames_in] * len(sizes),
+          f"abr_filtered: {frames_in} frames in, {kept} out per rung "
+          "(yadif send_frame keeps the count)")
+    # the same steps on the CPU over the whole first batch: the rung
+    # kernel's plain version
+    src, pts, valid = first
+    src = head_cpu(src, src.batch)
+    cg = FilterGraph(ABR_COMMON, 30.0)
+    cfb, ckeep = cg.process(src, pts=pts, valid=valid, times=pts * tb)
+    cpts = cg.out_pts
+    err, compared = 0.0, []
+    for r, ((ow, oh), planes) in enumerate(zip(sizes, rungs.fused_rungs(
+            *(cfb.planes[k] for k in "yuv"), sizes))):
+        rb = FrameBatch(dict(zip("yuv", planes)), "yuv420p", ow, oh)
+        rb, rkeep = FilterGraph(ABR_RUNG_FILTERS, 30.0).process(
+            rb, pts=cpts, keep=ckeep, times=cpts * tb)
+        idx = torch.as_tensor(np.nonzero(rkeep)[0])
+        want = rb.with_planes({k: v[idx] for k, v in rb.planes.items()})
+        got = FrameBatch({k: first_out[r][k] for k in "yuv"}, "yuv420p",
+                         ow, oh)
+        err = max(err, planes_lsb(got, want))
+        compared.append(len(idx))
+    check(err == 0 and compared == [first_out[0]["y"].shape[0]] * len(sizes)
+          and compared[0] == valid - 1,
+          f"abr_filtered vs CPU: {err} LSB over {compared} frames")
+    fps = frames_in / wall
+    emit("abr_filtered", source=[ABR_FRAMES, H, W], batch=ABR_BATCH,
+         common=ABR_COMMON, rung_filters=ABR_RUNG_FILTERS,
+         rungs=[f"{ow}x{oh}" for ow, oh in sizes], launches=counts,
+         ladder_steps=steps, frames_out_per_rung=kept,
+         first_batch_frames_vs_cpu=compared, max_lsb_vs_cpu=err,
+         wall_s=wall, source_frames_per_s=fps,
+         bare_ladder_source_frames_per_s=bare_fps,
+         phase_s=time.perf_counter() - t_phase)
+    return counts
+
+
 def av_precondition(phase: str) -> bool:
     """Whether the host runtime can be built here (libav* libraries and
     headers); prints `{phase}_precondition`, and `{phase}` with run: false
@@ -522,8 +848,11 @@ def metrans_session(path, tmp):
     from gmat_tpu_torch.av import toolkit as tk
     opts = metrans.Options(
         input_file=path, video_enc_param="codec=h264:preset=p1:constqp=28",
-        rungs=[metrans.Rung(ow, oh, out_file=os.path.join(
-            tmp, f"session_{ow}x{oh}_#.mp4")) for ow, oh in LADDER_1080])
+        video_filter_desc=ABR_COMMON,
+        rungs=[metrans.Rung(ow, oh, filter_desc=ABR_RUNG_FILTERS,
+                            out_file=os.path.join(
+                                tmp, f"session_{ow}x{oh}_#.mp4"))
+               for ow, oh in LADDER_1080])
     res = metrans.run_session(0, opts, batch=ABR_BATCH)
     check(res["frames_in"] == ABR_FRAMES
           and res["frames_out"] == ABR_FRAMES * len(LADDER_1080),
@@ -658,6 +987,7 @@ def smart_decode(tmp, device="cuda"):
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
                  "script needs one CUDA device")
@@ -792,6 +1122,9 @@ def main() -> None:
          output=[oh_r, ow_r], **ragged_ladder)
     del got
 
+    # --------------------------------------------------- filter graph
+    filter_graph_phase()
+
     # ----------------------------------------- wire lane (K6, K7, K8)
     def nv12_wire(planes):
         return pack_nv12(FrameBatch(dict(zip("yuv", planes)), "yuv420p",
@@ -905,6 +1238,7 @@ def main() -> None:
         abr_i8 = abr_ladder("abr_ladder_i8", rungs, src, LADDER_1080_I8,
                             tmp)
         check(abr_i8["quant"] == "i8", "720p/360p should take int8 rows")
+        filtered = abr_filtered(rungs, src, LADDER_1080_I8, abr_i8["fps"])
         rung_src = [tuple(b[0].planes[k] for k in "yuv")
                     for b in abr["batches"][:2]]
         for b in abr["batches"] + abr_i8["batches"]:
@@ -1152,6 +1486,12 @@ def main() -> None:
     k7.update(ms_8k=timing["ladder_nv12_i8_8k"]["ms"],
               plain_ms_8k=timing["ladder_nv12_i8_8k"]["plain_ms"],
               bound_ms_8k=timing["ladder_nv12_i8_8k"]["bound_ms"])
+    # the filtered ABR path launches the same kernel once per batch
+    rungs_i8_row = row("rungs_i8", "rungs_i8", 876, "_rungs_kernel_i8",
+                       abr_i8_counts["rungs_i8"],
+                       max(abr_i8_plain, forced["i8"]), "rungs.cu",
+                       max(abr_i8_plain, forced["i8"]))
+    rungs_i8_row["launches_abr_filtered"] = filtered["rungs_i8"]
     kernels = [
         row("ladder_i8", "ladder_i8", 455, "_ladder_kernel_i8",
             main_counts["ladder_i8"], err_k1),
@@ -1160,9 +1500,7 @@ def main() -> None:
             "_ladder_kernel_i8_chunked", wide_counts["ladder_i8"],
             max(err_k3, err_57)),
         # u8 outputs: the error is in u8 codes
-        row("rungs_i8", "rungs_i8", 876, "_rungs_kernel_i8",
-            abr_i8_counts["rungs_i8"], max(abr_i8_plain, forced["i8"]),
-            "rungs.cu", max(abr_i8_plain, forced["i8"])),
+        rungs_i8_row,
         row("rungs_bf16", "rungs_bf16", 845, "_rungs_kernel",
             abr["counts"]["rungs_bf16"], max(abr["plain"], forced["bf16"]),
             "rungs.cu", max(abr["plain"], forced["bf16"])),
@@ -1175,6 +1513,7 @@ def main() -> None:
         row("ladder_p010", "ladder_p010", 734, "_ladder_p010_kernel",
             wire_counts["ladder_p010"], errs_wire["ladder_p010"]),
     ]
+    emit("elapsed", seconds=time.perf_counter() - t_start)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

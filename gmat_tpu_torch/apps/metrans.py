@@ -9,20 +9,21 @@ Execution model:
   * reference: decode thread -> RoundQueue ring -> N encoder threads each
     doing CUDA ScaleNv12 + NVENC (AppMeTrans.cpp:71-124)
   * here: `decode_stream` stages each decoded batch on the card; the
-    device work for ALL rungs is one `ladder_step` per batch — on CUDA
-    planes one launch of the rung kernel (`ops/rungs.fused_rungs`) that
-    writes every rung's YUV planes, elsewhere one `ops/resize.resize` per
-    rung; host libx264/x265 encoders run on worker threads fed by bounded
-    queues (they release the GIL, overlapping encode with device work and
-    decode).
+    device work of a batch is one `filtered_step`: the session's common
+    filter graph (VideoFilterDesc), then one `ladder_step` for ALL rungs —
+    on CUDA planes one launch of the rung kernel (`ops/rungs.fused_rungs`)
+    that writes every rung's YUV planes, elsewhere one `ops/resize.resize`
+    per rung — then each rung's own filter graph; host libx264/x265
+    encoders run on worker threads fed by bounded queues (they release
+    the GIL, overlapping encode with device work and decode).
 
 Config: XML with the reference's tags (InputFile, Session, FpsLimit,
-VideoEncParam, Resolutions/Resolution{Width,Height,VideoFilterDesc,
-VideoEncParamSuffix,OutputFormat,OutputFile}).  '#' in OutputFile is the
-session index, like the reference.  Video filters (VideoFilterDesc, a
-rung's filter) come with the filter graph in slice 3, AudioFilterDesc with
-the audio lane in slice 6 and ProcDecode with the shared-memory ring in
-slice 7: until then each raises NotImplementedError.
+VideoEncParam, VideoFilterDesc, Resolutions/Resolution{Width,Height,
+VideoFilterDesc,VideoEncParamSuffix,OutputFormat,OutputFile}).  '#' in
+OutputFile is the session index, like the reference.  AudioFilterDesc
+comes with the audio lane in slice 6 and ProcDecode with the
+shared-memory ring in slice 7: until then each raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 from ..core.frame import FrameBatch
-from ..ops import resize as rsz
+from ..ops import csc, resize as rsz
 from ..ops.rungs import fused_rungs, fused_rungs_fits
 
 
@@ -109,10 +110,6 @@ _NO_AUDIO_FILTERS = ("AudioFilterDesc needs the audio filters "
 
 def _unported(opts: Options) -> None:
     """Raise for the options whose modules come in later slices."""
-    if opts.video_filter_desc or any(r.filter_desc for r in opts.rungs):
-        raise NotImplementedError(
-            "VideoFilterDesc and rung filters need the filter graph "
-            "(filters/graph.FilterGraph), which the port gains in slice 3")
     if opts.audio_filter_desc:
         raise NotImplementedError(_NO_AUDIO_FILTERS)
     if opts.proc_decode:
@@ -288,6 +285,60 @@ def ladder_step(fb: FrameBatch, rung_sizes) -> List[FrameBatch]:
     return [rsz.resize(fb, ow, oh) for ow, oh in rung_sizes]
 
 
+def _for_encoder(rb: FrameBatch) -> FrameBatch:
+    """A rung that a filter left in another format, back in the
+    encoder's yuv420p."""
+    if rb.fmt.is_rgb or rb.format != "yuv420p":
+        return csc.convert(rb, "yuv420p")
+    return rb
+
+
+def rung_step(fb: FrameBatch, keep: np.ndarray, pts, meta, rung_sizes,
+              rung_graphs=None) -> list:
+    """`ladder_step` on a batch, then each rung's filter graph: one
+    (FrameBatch, keep mask) per rung, on the batch's device.
+
+    `keep` is the batch's mask after the common graph; a rung graph sees
+    it (so stream filters skip dropped frames) with `pts` and the
+    per-frame `meta` (times/keys/pos/interlaced).  A rung that a filter
+    left in another format is converted back to yuv420p for the encoder;
+    a rung with nothing kept is (None, its mask)."""
+    rung_graphs = rung_graphs or [None] * len(rung_sizes)
+    if fb.batch == 0:
+        return [(None, np.zeros(0, bool)) for _ in rung_sizes]
+    outs = []
+    for g, rb in zip(rung_graphs, ladder_step(fb, rung_sizes)):
+        rkeep = keep
+        if g is not None:
+            rb, rkeep = g.process(rb, pts=pts, keep=keep, **(meta or {}))
+        outs.append((_for_encoder(rb) if rkeep.any() else None, rkeep))
+    return outs
+
+
+def filtered_step(fb: FrameBatch, pts, valid: int, rung_sizes,
+                  common_graph=None, rung_graphs=None, src_meta=None,
+                  tb_sec: float = 1.0 / 30.0):
+    """The per-batch device work of a session, on the batch's device: the
+    common filter graph, `ladder_step` on what it returns, then each
+    rung's graph (`rung_step`).  Returns one (FrameBatch or None, keep
+    mask) per rung.
+
+    A common graph may drop, delay or re-time frames (select, yadif
+    send_field): the rungs then see its output pts, and the times
+    recomputed from them (`tb_sec` seconds per pts unit)."""
+    if common_graph is not None:
+        fb, keep = common_graph.process(fb, pts=pts, valid=valid,
+                                        **(src_meta or {}))
+        if common_graph.out_pts is not None:
+            pts = common_graph.out_pts
+        rmeta = {"times": pts * tb_sec} if pts is not None else None
+    else:
+        keep = np.ones(fb.batch, bool)
+        keep[valid:] = False
+        rmeta = src_meta
+    return rung_step(fb, keep, pts, rmeta, rung_sizes, rung_graphs)
+
+
 def _push_rung(w_: EncoderWorker, out: FrameBatch, keep: np.ndarray):
     idx = np.nonzero(keep)[0]
     if len(idx) == 0:
@@ -307,6 +358,7 @@ def run_session(session_idx: int, opts: Options, batch: int = 16,
                 frames_limit: int = 0, quiet: bool = True,
                 device="cuda") -> dict:
     from ..av.ingest import decode_stream
+    from ..filters.graph import FilterGraph
     from ..utils.encparam import parse_enc_param
     from ..utils.stopwatch import FpsLimiter, FpsMeter, StopWatch
 
@@ -314,15 +366,30 @@ def run_session(session_idx: int, opts: Options, batch: int = 16,
     watch = StopWatch()
     src = decode_stream(opts.input_file, batch=batch, device=device)
     src_fps = getattr(src, "fps", 0.0) or 30.0
-
-    base_kwargs = parse_enc_param(opts.video_enc_param) if opts.video_enc_param else {
-        "codec_name": "libx264"}
-    base_kwargs.setdefault("preset", "ultrafast")
-    # default to the SOURCE rate (a 60fps input stamped 30fps would play
-    # half speed and desync from the audio lane); explicit fps= wins
-    base_kwargs.setdefault("fps", (round(src_fps * 1000), 1000))
-
     try:
+        # pts timebase in seconds: container inputs use the stream
+        # timebase, raw inputs stamp frame indices (1/fps)
+        tb_sec = 1.0 / src_fps
+        if not opts.input_file.lower().endswith(
+                (".y4m", ".yuv", ".nv12", ".iyuv", ".raw")):
+            from ..av import toolkit as tk
+            dmp = tk.Demuxer(opts.input_file)
+            tb_sec = dmp.time_base[0] / max(dmp.time_base[1], 1)
+            dmp.close()
+        common_graph = (FilterGraph(opts.video_filter_desc, src_fps)
+                        if opts.video_filter_desc else None)
+        # rung graphs consume the COMMON graph's output rate (a common
+        # yadif=1 doubles it; a rung fps=N must decimate against that)
+        rung_fps = src_fps * getattr(common_graph, "fps_mul", 1)
+        rung_graphs = [FilterGraph(r.filter_desc, rung_fps)
+                       if r.filter_desc else None for r in opts.rungs]
+        base_kwargs = parse_enc_param(opts.video_enc_param) \
+            if opts.video_enc_param else {"codec_name": "libx264"}
+        base_kwargs.setdefault("preset", "ultrafast")
+        # default to the SOURCE rate (a 60fps input stamped 30fps would
+        # play half speed and desync from the audio lane); explicit fps=
+        # wins
+        base_kwargs.setdefault("fps", (round(src_fps * 1000), 1000))
         audio = transcode_audio(opts) if opts.audio_codec else None
         # validate EVERY rung's output before starting any worker: raising
         # mid-loop would leak already-started workers blocked on q.get()
@@ -342,25 +409,54 @@ def run_session(session_idx: int, opts: Options, batch: int = 16,
         if r.enc_suffix:
             kw = parse_enc_param(r.enc_suffix, kw)
         path = r.out_file.replace("#", str(session_idx))
+        fps = kw["fps"]
+        # filters that change the frame rate (yadif send_field, fps)
+        mul = getattr(common_graph, "fps_mul", 1) * \
+            getattr(rung_graphs[i], "fps_mul", 1)
+        if mul != 1:
+            # keep the rate RATIONAL: fps filters give float multipliers
+            # (1/step) and the encoder takes ints — scale by 1000
+            fps = (int(round(fps[0] * mul * 1000)), int(fps[1] * 1000))
+        kw["fps"] = fps       # EncoderWorker prefers kw['fps']
         workers.append(EncoderWorker(f"enc{i}", path, r.width, r.height,
-                                     kw["fps"], kw, audio=audio))
+                                     fps, kw, audio=audio))
         workers[-1].start()
 
     limiter = FpsLimiter(opts.fps_limit)
     meter = FpsMeter(f"session{session_idx}", quiet=quiet)
     rung_sizes = tuple((r.width, r.height) for r in opts.rungs)
     n_in = 0
+
+    def push(outs):
+        for w_, (out, keep) in zip(workers, outs):
+            if out is not None:
+                _push_rung(w_, out, keep)
+
     try:
         for fb, pts, valid in src:
-            keep = np.ones(fb.batch, bool)
-            keep[valid:] = False
-            for w_, out in zip(workers, ladder_step(fb, rung_sizes)):
-                _push_rung(w_, out, keep)
+            src_meta = dict(times=pts * tb_sec,
+                            keys=getattr(src, "last_keys", None),
+                            pos=getattr(src, "last_pos", None),
+                            interlaced=getattr(src, "last_interlaced", None))
+            push(filtered_step(fb, pts, valid, rung_sizes, common_graph,
+                               rung_graphs, src_meta, tb_sec))
             n_in += int(valid)
             meter.add(int(valid))
             limiter.tick(int(valid))
             if frames_limit and n_in >= frames_limit:
                 break
+        # end of stream: drain the stateful filters of the common graph
+        # (through the ladder and the rung graphs), then the rung graphs
+        if common_graph is not None:
+            for fb, keep, meta in common_graph.flush():
+                fpts = meta.get("pts")
+                push(rung_step(fb, keep, fpts, {"times": fpts * tb_sec}
+                               if fpts is not None else None, rung_sizes,
+                               rung_graphs))
+        for w_, g in zip(workers, rung_graphs):
+            for out, rkeep, _meta in (g.flush() if g is not None else ()):
+                if rkeep.any():
+                    _push_rung(w_, _for_encoder(out), rkeep)
     finally:
         # the -frames early break (and any error) must stop the prefetch
         # producer thread and release the demuxer/decoder handles

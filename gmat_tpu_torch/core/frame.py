@@ -23,6 +23,17 @@ def torch_dtype(name: str) -> torch.dtype:
     return TORCH_DTYPES[np.dtype(name).name]
 
 
+def same_bits(fn, *planes, **kw) -> torch.Tensor:
+    """fn(*planes, **kw) for planes of any dtype.  uint16 has few PyTorch
+    kernels (no indexing on CUDA, no flip on the CPU); its int16 view holds
+    the same bits, so a data-movement op (gather, cat, stack, flip,
+    repeat, where) runs on that view and its result is viewed back."""
+    if planes[0].dtype != torch.uint16:
+        return fn(*planes, **kw)
+    return fn(*(p.view(torch.int16) for p in planes), **kw).view(
+        torch.uint16)
+
+
 def to_device(arr: np.ndarray, device) -> torch.Tensor:
     """numpy -> tensor on `device`.  A CUDA device without a card raises:
     there is no silent CPU fallback."""

@@ -1,9 +1,11 @@
 """Color-space conversion — counterpart of `gmat_tpu/ops/csc.py`.
 
-Only what the fused preprocess ladder reaches: YUV -> RGB and the
-NCHW handoff.  Chroma upsampling is nearest (2x2 shares one U,V), like
-the reference kernels.  `exact=True` truncates like the reference's C
-float->int casts; the default rounds to nearest.
+YUV <-> RGB, YUV depth/layout, RGB reorder/depth/float, the `convert`
+dispatcher and the NCHW handoff, as plain tensor ops on the batch's
+device.  Chroma upsampling is nearest (2x2 shares one U,V) and chroma
+downsampling the 2x2 average, like the reference kernels.  `exact=True`
+truncates like the reference's C float->int casts; the default rounds
+to nearest.
 """
 from __future__ import annotations
 
@@ -13,8 +15,8 @@ import numpy as np
 import torch
 
 from ..core import formats as F
-from ..core.color import yuv2rgb_matrix, yuv_offsets
-from ..core.frame import FrameBatch, torch_dtype
+from ..core.color import rgb2yuv_matrix, yuv2rgb_matrix, yuv_offsets
+from ..core.frame import FrameBatch, same_bits, torch_dtype
 
 
 def _container_bits(fmt: F.PixelFormat) -> int:
@@ -42,6 +44,20 @@ def _chroma_up(c: torch.Tensor, sub_h: int, sub_w: int) -> torch.Tensor:
     if sub_w:
         c = torch.repeat_interleave(c, 1 << sub_w, dim=2)
     return c
+
+
+def _chroma_box(c: torch.Tensor, sub_h: int, sub_w: int,
+                exact: bool = False) -> torch.Tensor:
+    """Box-mean downsample from luma resolution by per-axis factors."""
+    if not (sub_h or sub_w):
+        return c
+    n, h, w = c.shape
+    fh, fw = 1 << sub_h, 1 << sub_w
+    c = c.reshape(n, h // fh, fh, w // fw, fw)
+    if exact:
+        # integer //(fh*fw) of the block sum, like the reference
+        return torch.floor(c.sum(dim=(2, 4)) / float(fh * fw))
+    return c.mean(dim=(2, 4))
 
 
 def _yuv_to_float(fb: FrameBatch):
@@ -117,7 +133,164 @@ def yuv_to_rgb(fb: FrameBatch, out_format: str = "rgb24", *,
     return fb.with_planes({"rgb": rgb}, out_format)
 
 
+def _rgb_to_float(fb: FrameBatch):
+    """Return (r, g, b) float at native scale, plus the scale max."""
+    fmt = fb.fmt
+    arr = fb.planes["rgb"].to(torch.float32)
+    if fmt.is_float:
+        # float sources clamp to the canonical [0,1] range on read, like
+        # swscale's float input readers (av_clipf)
+        arr = torch.clamp(arr, 0.0, 1.0)
+    chans = {c: arr[..., i] for i, c in enumerate(fmt.channel_order)}
+    maxv = 1.0 if fmt.is_float else float(F.max_value(fmt))
+    return chans["r"], chans["g"], chans["b"], maxv
+
+
+def _store(x: torch.Tensor, dt: torch.dtype, shift_up: int = 0):
+    """Quantized float samples -> the format's container dtype, shifted
+    into the msb for p010."""
+    if shift_up:
+        return (x.to(torch.int32) << shift_up).to(dt)
+    return x.to(dt)
+
+
+def rgb_to_yuv(fb: FrameBatch, out_format: str = "yuv420p", *,
+               exact: bool = False) -> FrameBatch:
+    """RGB -> YUV 4:2:0/4:2:2/4:4:4/gray.  Chroma = convert(mean of the
+    RGB block)."""
+    out_fmt = F.get(out_format)
+    if not out_fmt.is_yuv:
+        raise ValueError(f"rgb_to_yuv needs a YUV output, got {out_format}")
+    m = [[float(c) for c in row] for row in rgb2yuv_matrix(fb.colorspace)]
+    r, g, b, src_maxv = _rgb_to_float(fb)
+    dst_bits = _offset_bits(out_fmt)
+    if out_fmt.name == "p010":
+        # write the clean <<6 wire convention: quantize at the true 10-bit
+        # depth, then shift into the container msb
+        dst_bits = 10
+    low, mid = yuv_offsets(dst_bits)
+    dst_maxv = float((1 << dst_bits) - 1)
+    scale = dst_maxv / src_maxv
+    y = _quantize(m[0][0] * (r * scale) + m[0][1] * (g * scale)
+                  + m[0][2] * (b * scale) + low, dst_maxv, exact)
+    dt = torch_dtype(out_fmt.planes[0].dtype)
+    if not any(p.name == "u" for p in out_fmt.planes):   # gray: luma only
+        return fb.with_planes({"y": y.to(dt)}, out_format)
+    pu = out_fmt.plane("u")
+    if pu.sub_w or pu.sub_h:
+        ex = exact and not fb.fmt.is_float
+        r, g, b = (_chroma_box(c, pu.sub_h, pu.sub_w, ex) for c in (r, g, b))
+    r, g, b = r * scale, g * scale, b * scale
+    u = _quantize(m[1][0] * r + m[1][1] * g + m[1][2] * b + mid, dst_maxv,
+                  exact)
+    v = _quantize(m[2][0] * r + m[2][1] * g + m[2][2] * b + mid, dst_maxv,
+                  exact)
+    sh = _container_bits(out_fmt) - dst_bits if out_fmt.name == "p010" else 0
+    return fb.with_planes({"y": _store(y, dt, sh), "u": _store(u, dt, sh),
+                           "v": _store(v, dt, sh)}, out_format)
+
+
+def yuv_to_yuv(fb: FrameBatch, out_format: str) -> FrameBatch:
+    """Depth / chroma-layout conversion between YUV formats.
+
+    Depth changes follow yuv2yuv_cuda.cu:16-120: u8->u16 is x<<8
+    (high-bit alignment), u16->u8 is x>>8.
+    """
+    out_fmt = F.get(out_format)
+    in_fmt = fb.fmt
+    dt = torch_dtype(out_fmt.planes[0].dtype)
+    # significant bits + in-container alignment (p010 stores 10-bit
+    # samples msb-aligned, i.e. << 6; yuv420p10 is lsb-aligned)
+    src_sig, dst_sig = in_fmt.bits, out_fmt.bits
+    src_sh = 6 if in_fmt.name == "p010" else 0
+    dst_sh = 6 if out_fmt.name == "p010" else 0
+
+    def conv(p):
+        v = p.to(torch.int32) >> src_sh
+        if dst_sig > src_sig:
+            v = v << (dst_sig - src_sig)
+        elif dst_sig < src_sig:
+            v = v >> (src_sig - dst_sig)
+        return (v << dst_sh).to(dt)
+
+    planes = {k: conv(v) for k, v in fb.planes.items()}
+    in_has_c = any(p.name == "u" for p in in_fmt.planes)
+    out_has_c = any(p.name == "u" for p in out_fmt.planes)
+    if in_has_c and not out_has_c:       # -> gray: drop chroma
+        return fb.with_planes({"y": planes["y"]}, out_format)
+    if out_has_c and not in_has_c:       # gray -> yuv: neutral chroma
+        mid = 1 << (_offset_bits(out_fmt) - 1)
+        pu = out_fmt.plane("u")
+        # per-axis shifts: 4:2:2 halves width only (sub_h = 0)
+        cshape = (fb.batch, fb.height >> pu.sub_h, fb.width >> pu.sub_w)
+        neutral = torch.full(cshape, mid, dtype=dt, device=fb.device)
+        planes["u"] = planes["v"] = neutral
+        return fb.with_planes(planes, out_format)
+    if not (in_has_c and out_has_c):     # gray -> gray: depth only
+        return fb.with_planes(planes, out_format)
+    ipu, opu = in_fmt.plane("u"), out_fmt.plane("u")
+    if (ipu.sub_w, ipu.sub_h) != (opu.sub_w, opu.sub_h):
+        # generic per-axis relayout (420<->444, 422<->444, 420<->422):
+        # nearest-upsample to 4:4:4 then box-mean down to the target
+        for k in ("u", "v"):
+            c = same_bits(_chroma_up, planes[k], sub_h=ipu.sub_h,
+                          sub_w=ipu.sub_w)
+            if opu.sub_w or opu.sub_h:
+                c = torch.round(_chroma_box(c.to(torch.float32), opu.sub_h,
+                                            opu.sub_w))
+            planes[k] = c.to(dt)
+    return fb.with_planes(planes, out_format)
+
+
+def rgb_to_rgb(fb: FrameBatch, out_format: str, *, exact: bool = False,
+               norm: Optional[float] = None,
+               shift: Optional[Sequence[float]] = None) -> FrameBatch:
+    """Channel reorder / depth / float conversion between RGB formats."""
+    out_fmt = F.get(out_format)
+    if (fb.fmt.is_float and out_fmt.is_float and norm is None
+            and shift is None):
+        # pure channel reorder between float formats: bit-exact
+        arr = fb.planes["rgb"]
+        chans = {c: arr[..., i] for i, c in enumerate(fb.fmt.channel_order)}
+        out = [chans[c] if c in chans else torch.ones_like(arr[..., 0])
+               for c in out_fmt.channel_order]
+        return fb.with_planes(
+            {"rgb": torch.stack(out, dim=-1).to(torch.float32)}, out_format)
+    r, g, b, src_maxv = _rgb_to_float(fb)
+    if fb.fmt.is_float:
+        r, g, b = (c * 255.0 for c in (r, g, b))
+        src_maxv = 255.0
+    rgb = _pack_rgb(r, g, b, out_fmt, src_maxv, exact, norm, shift,
+                    src_float=fb.fmt.is_float)
+    return fb.with_planes({"rgb": rgb}, out_format)
+
+
+def convert(fb: FrameBatch, out_format: str, **kw) -> FrameBatch:
+    """Format dispatcher (the analog of swscale's unscaled conversions)."""
+    if out_format == fb.format and not kw:
+        return fb
+    in_rgb, out_rgb = fb.fmt.is_rgb, F.get(out_format).is_rgb
+    if out_format == fb.format:
+        # same RGB format with norm/shift: a rescale; same YUV: nothing
+        return rgb_to_rgb(fb, out_format, **kw) if in_rgb else fb
+    if in_rgb and out_rgb:
+        return rgb_to_rgb(fb, out_format, **kw)
+    if in_rgb:
+        return rgb_to_yuv(fb, out_format, **kw)
+    if out_rgb:
+        return yuv_to_rgb(fb, out_format, **kw)
+    return yuv_to_yuv(fb, out_format)
+
+
 def to_nchw(fb: FrameBatch) -> torch.Tensor:
     """Packed (N,H,W,C) RGB batch -> NCHW fp32 planar (the RGBPF32 tensor
     shape DL models consume)."""
     return fb.planes["rgb"].permute(0, 3, 1, 2).to(torch.float32).contiguous()
+
+
+def from_nchw(x: torch.Tensor, fmt: str, colorspace: str = "bt709"
+              ) -> FrameBatch:
+    """NCHW planar tensor -> packed (N,H,W,C) RGB batch."""
+    n, c, h, w = x.shape
+    return FrameBatch({"rgb": x.permute(0, 2, 3, 1).contiguous()}, fmt, w, h,
+                      colorspace)

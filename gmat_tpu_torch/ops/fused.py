@@ -57,9 +57,14 @@ def preprocess(fb: FrameBatch, out_w: int, out_h: int,
         bx, by, bw, bh = crop_box
         fb = crop_op(fb, bw, bh, bx, by)
     if fb.fmt.is_rgb:
-        raise NotImplementedError(
-            "RGB input needs csc.convert, which is ported with the "
-            "filter-graph slice (ROADMAP.md, queue 1, slice 3)")
+        out = resize_op(fb, out_w, out_h, method)
+        if smooth is not None:
+            out = _apply_smooth(out, smooth)
+        if flip_code is not None:
+            out = flip_op(out, flip_code)
+        kw = ({"norm": norm, "shift": shift}
+              if F.get(out_format).is_rgb else {})
+        return csc.convert(out, out_format, **kw)
 
     if exact:
         rgb = csc.yuv_to_rgb(fb, out_format, norm=norm, shift=shift)

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..core import formats as F
-from ..core.frame import FrameBatch, torch_dtype
+from ..core.frame import FrameBatch, same_bits, torch_dtype
 
 METHODS = ("nearest", "bilinear", "bicubic", "area", "lanczos3")
 
@@ -141,8 +141,9 @@ def _gather_resize(x: torch.Tensor, out_h: int, out_w: int,
     tail = (1,) * (x.ndim - 2)          # broadcast over W (and C)
     acc = None
     for k in range(T):
-        g = x.index_select(1, torch.as_tensor(
-            np.minimum(ridx + k, n_in_h - 1), device=dev)).to(torch.float32)
+        rows = torch.as_tensor(np.minimum(ridx + k, n_in_h - 1), device=dev)
+        g = same_bits(torch.index_select, x, dim=1, index=rows).to(
+            torch.float32)
         wk = torch.as_tensor(rw[:, k], device=dev).reshape(1, -1, *tail)
         acc = g * wk if acc is None else acc + g * wk
     out = None

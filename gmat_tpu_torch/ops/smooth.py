@@ -1,10 +1,11 @@
-"""Gaussian smoothing — counterpart of the gaussian half of
-`gmat_tpu/ops/smooth.py` (median comes with the filter-graph slice).
+"""Smoothing filters: gaussian and median blur — counterpart of
+`gmat_tpu/ops/smooth.py`.
 
 smooth_nvcv (libavfilter/vf_smooth_nvcv.c:88-103 — options type/kw/kh/
 border_type/sigmaX/sigmaY).  The gaussian is separable: two shifted-add
 1-D convolutions in exact f32.  `smooth_matrix` is the dense matrix form
-that the fused ladder folds into its resample matrices.
+that the fused ladder folds into its resample matrices.  The median is an
+exact order-statistic selection over the window's shifted views.
 """
 from __future__ import annotations
 
@@ -104,6 +105,49 @@ def gaussian_blur_plane(x: torch.Tensor, kw: int = 3, kh: int = 3,
     return _conv1d_axis(y, kx, 2, border)
 
 
+def median_blur_plane(x: torch.Tensor, kw: int = 3, kh: int = 3
+                      ) -> torch.Tensor:
+    """(N,H,W[,C]) median over a kh x kw window (replicate border,
+    matching CV-CUDA MedianBlur).
+
+    Integer planes with an odd window select the middle order statistic
+    bit by bit (from the top bit down, keep a bit when fewer than half the
+    window lies below the candidate): exact, with no stacked window copy.
+    Float planes and even windows sort the stacked window (an even
+    window gives the mean of the two middle values, in f32)."""
+    half_h, half_w = (kh - 1) // 2, (kw - 1) // 2
+    h, w = x.shape[1], x.shape[2]
+    k = kh * kw
+    select = x.dtype in (torch.uint8, torch.uint16) and k % 2 == 1
+    # u8 selects in u8; u16 widens (index_select has no u16 kernel)
+    work = x.to(torch.int32) if x.dtype == torch.uint16 else x
+    dev = x.device
+    rows = torch.as_tensor(np.clip(np.arange(-half_h, h + kh - 1 - half_h),
+                                   0, h - 1), device=dev)
+    cols = torch.as_tensor(np.clip(np.arange(-half_w, w + kw - 1 - half_w),
+                                   0, w - 1), device=dev)
+    xp = work.index_select(1, rows).index_select(2, cols)
+    wins = [xp[:, dy:dy + h, dx:dx + w] for dy in range(kh)
+            for dx in range(kw)]
+    if not select:
+        srt = torch.sort(torch.stack(wins, dim=-1), dim=-1).values
+        if k % 2:
+            return srt[..., k // 2]
+        return (srt[..., k // 2 - 1].to(torch.float32) +
+                srt[..., k // 2].to(torch.float32)) / 2.0
+    rank = k // 2
+    bits = 8 if x.dtype == torch.uint8 else 16
+    res = torch.zeros_like(wins[0])
+    for b in reversed(range(bits)):
+        cand = res | (1 << b)
+        below = None
+        for win in wins:
+            lt = (win < cand).to(torch.int16)
+            below = lt if below is None else below + lt
+        res = torch.where(below <= rank, cand, res)
+    return res.to(x.dtype)
+
+
 def smooth(fb: FrameBatch, type: str = "gaussian", kw: int = 3, kh: int = 3,
            border_type: str = "constant", sigmaX: float = 0.0,
            sigmaY: float = 0.0) -> FrameBatch:
@@ -113,17 +157,16 @@ def smooth(fb: FrameBatch, type: str = "gaussian", kw: int = 3, kh: int = 3,
         # the whole image half a pixel silently
         raise ValueError(f"smooth kernel sizes must be odd and >= 1, "
                          f"got {kw}x{kh}")
-    if type == "median":
-        raise NotImplementedError(
-            "median smooth is ported with the filter-graph slice "
-            "(ROADMAP.md, queue 1, slice 3)")
-    if type != "gaussian":
+    if type not in ("gaussian", "median"):
         raise ValueError(f"smooth type {type!r} (gaussian|median)")
     fmt = fb.fmt
     planes = {}
     for p in fmt.planes:
-        y = gaussian_blur_plane(fb.planes[p.name], kw, kh, sigmaX, sigmaY,
-                                border_type)
+        x = fb.planes[p.name]
+        if type == "gaussian":
+            y = gaussian_blur_plane(x, kw, kh, sigmaX, sigmaY, border_type)
+        else:
+            y = median_blur_plane(x, kw, kh).to(torch.float32)
         if not fmt.is_float:
             y = torch.clamp(torch.round(y), 0, F.clip_value(fmt))
         planes[p.name] = y.to(torch_dtype(fmt.planes[0].dtype))

@@ -29,7 +29,12 @@ def test_import_pulls_in_no_jax():
         "gmat_tpu_torch.utils.encparam, gmat_tpu_torch.utils.stopwatch, "
         "gmat_tpu_torch.apps.metrans, gmat_tpu_torch.ops.scene, "
         "gmat_tpu_torch.av.extractor, gmat_tpu_torch.av.torch_interop, "
-        "gmat_tpu_torch.apps.extract, gmat_tpu_torch.utils.logger\n"
+        "gmat_tpu_torch.apps.extract, gmat_tpu_torch.utils.logger, "
+        "gmat_tpu_torch.ops.lut, gmat_tpu_torch.ops.csc, "
+        "gmat_tpu_torch.ops.geometry, gmat_tpu_torch.ops.smooth, "
+        "gmat_tpu_torch.ops.enhance, gmat_tpu_torch.ops.yadif, "
+        "gmat_tpu_torch.ops.bwdif, gmat_tpu_torch.filters.expr, "
+        "gmat_tpu_torch.filters.builtin, gmat_tpu_torch.filters.graph\n"
         "bad = [m for m in sys.modules if m.startswith('jax') "
         "or m == 'gmat_tpu' or m.startswith('gmat_tpu.')]\n"
         "print(bad)\n"

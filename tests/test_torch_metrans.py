@@ -1,7 +1,8 @@
 """The port's ABR ladder app (apps/metrans) against the JAX one: options,
 the per-batch ladder step (per-rung resize and the fused rung kernel's
-plain version), and whole sessions on the CPU, compared by what each
-encoder worker is handed."""
+plain version), the filtered step around it, and whole sessions on the
+CPU, with and without filter graphs, compared by what each encoder
+worker is handed."""
 import dataclasses
 
 import numpy as np
@@ -165,18 +166,131 @@ def test_ladder_step_resize_branch(rng):
             assert torch.equal(rb.planes[k], want.planes[k])
 
 
+def _capture_fps(monkeypatch, module):
+    """Record the frame rate each rung's EncoderWorker is built with."""
+    rates = {}
+    orig = module.EncoderWorker.__init__
+
+    def init(self, name, path, w, h, fps, enc_kwargs, *a, **kw):
+        rates[name] = tuple(enc_kwargs.get("fps", fps))
+        return orig(self, name, path, w, h, fps, enc_kwargs, *a, **kw)
+    monkeypatch.setattr(module.EncoderWorker, "__init__", init)
+    return rates
+
+
+# (common VideoFilterDesc, one filter per rung): the filter sets of
+# tests/test_apps.py's metrans cases
+_FILTERED = {
+    "common_yadif": ("yadif=1", ("", "")),
+    "rung_eq_lut_unsharp": ("", (
+        "eq=contrast=1.2:brightness=0.05,lutyuv=y=gammaval(0.9):u=val:"
+        "v=val,unsharp=5:5:0.8", "hflip")),
+    "rung_fps_key_select": ("", ("fps=15", r"select=eq(key\,1)")),
+    "common_and_rung": ("hflip,yadif=1", ("fps=30", "format=yuv444p")),
+}
+# the key select needs an encoded source's keyframe flags
+_SOURCES = {"rung_fps_key_select": "mp4"}
+
+
+@pytest.mark.parametrize("case", sorted(_FILTERED))
+def test_filtered_session_matches_jax(monkeypatch, tmp_path, y4m, case):
+    """VideoFilterDesc and rung filters, both packages on the CPU: every
+    encoder is handed equal frames, equally many, at the same rate (a
+    common yadif=1 doubles it, fps=N decimates it), EOF flush included;
+    a rung that a filter left as yuv444p is converted back to yuv420p."""
+    if _SOURCES.get(case) == "mp4":
+        src = str(tmp_path / "clip.mp4")
+        make_clip(src)
+    else:
+        src = y4m
+    common, rung_filters = _FILTERED[case]
+    sizes = ((96, 64), (48, 32))
+    seen_port = _capture(monkeypatch, metrans)
+    seen_jax = _capture(monkeypatch, jmetrans)
+    rates_port = _capture_fps(monkeypatch, metrans)
+    rates_jax = _capture_fps(monkeypatch, jmetrans)
+
+    def opts(module, tag):
+        o = _opts(module, src, tmp_path, tag, sizes)
+        o.video_filter_desc = common
+        for r, f in zip(o.rungs, rung_filters):
+            r.filter_desc = f
+        return o
+    res = metrans.run_session(0, opts(metrans, "p"), batch=7, device="cpu")
+    jres = jmetrans.run_session(0, opts(jmetrans, "j"), batch=7)
+    assert res["frames_in"] == jres["frames_in"]
+    assert res["frames_out"] == jres["frames_out"] > 0
+    assert rates_port == rates_jax
+    assert sorted(seen_port) == sorted(seen_jax)
+    for name in seen_jax:
+        got, want = seen_port[name], seen_jax[name]
+        assert len(got) == len(want)
+        for g, j in zip(got, want):
+            for a, b in zip(g, j):
+                np.testing.assert_array_equal(a, b)
+
+
+def test_filtered_step_fused_branch_matches_jax_rungs(monkeypatch, rng):
+    """filtered_step with the fused branch forced on the CPU (the rung
+    kernel's plain version): a common yadif=1 then per-rung eq/lut/unsharp
+    and hflip, against the JAX graphs around the JAX fused_rungs
+    (interpret mode), batch by batch and through the flush."""
+    from gmat_tpu.core.frame import FrameBatch as JFrameBatch
+    from gmat_tpu.filters.graph import FilterGraph as JGraph
+    from gmat_tpu_torch.filters.graph import FilterGraph
+    n, h, w = 4, 64, 128
+    sizes = ((96, 48), (64, 32))
+    rung_specs = ("eq=contrast=1.2:brightness=0.05,lutyuv=y=gammaval(0.9):"
+                  "u=val:v=val,unsharp=5:5:0.8", "hflip")
+    monkeypatch.setattr(metrans, "fused_ok", lambda fb, s: True)
+    common, jcommon = FilterGraph("yadif=1"), JGraph("yadif=1")
+    graphs = [FilterGraph(s, 60.0) for s in rung_specs]
+    jgraphs = [JGraph(s, 60.0) for s in rung_specs]
+    before = dict(rungs.LAUNCHES)
+    for b in range(2):
+        planes = {"y": rng.integers(0, 256, (n, h, w)).astype(np.uint8),
+                  "u": rng.integers(0, 256, (n, h // 2, w // 2))
+                  .astype(np.uint8),
+                  "v": rng.integers(0, 256, (n, h // 2, w // 2))
+                  .astype(np.uint8)}
+        pts = np.arange(b * n, (b + 1) * n)
+        fb = FrameBatch.from_numpy(planes, "yuv420p", w, h, device="cpu")
+        outs = metrans.filtered_step(fb, pts, n, sizes, common, graphs,
+                                     {"times": pts / 30.0}, 1.0 / 30.0)
+        jfb = JFrameBatch({k: jnp.asarray(v) for k, v in planes.items()},
+                          "yuv420p", w, h)
+        jfb, keep = jcommon.process(jfb, pts=pts, valid=n,
+                                    times=pts / 30.0)
+        jpts = jcommon.out_pts
+        jouts = jpk.fused_rungs(*(jfb.planes[k] for k in "yuv"), sizes,
+                                interpret=True)
+        assert len(outs) == len(sizes)
+        for (rb, rkeep), (ow, oh), g, jo in zip(outs, sizes, jgraphs,
+                                                jouts):
+            want = JFrameBatch(dict(zip("yuv", jo)), "yuv420p", ow, oh)
+            want, jkeep = g.process(want, pts=jpts, keep=keep,
+                                    times=jpts / 30.0)
+            np.testing.assert_array_equal(rkeep, jkeep)
+            assert rb.format == "yuv420p" and (rb.width, rb.height) == (ow,
+                                                                        oh)
+            for k in "yuv":
+                d = np.abs(rb.planes[k].numpy().astype(int)
+                           - np.asarray(want.planes[k]).astype(int)).max()
+                # the plain rung version is within 1 LSB of the Pallas
+                # kernel; eq's contrast and unsharp may double that
+                assert d <= 3, (k, (ow, oh), d)
+    assert rungs.LAUNCHES == before
+    flushed = common.flush()
+    assert len(flushed) == 1 and flushed[0][0].batch == 2
+
+
 @pytest.mark.parametrize("field,value,slice_no", [
-    ("video_filter_desc", "hflip", 3),
     ("audio_filter_desc", "volume=0.5", 6),
     ("proc_decode", True, 7),
-    ("rung_filter", "scale=32:16", 3),
 ])
 def test_unported_options_raise(tmp_path, y4m, field, value, slice_no):
     opts = _opts(metrans, y4m, tmp_path, "x", ((32, 16),))
-    if field == "rung_filter":
-        opts.rungs[0].filter_desc = value
-    else:
-        setattr(opts, field, value)
+    setattr(opts, field, value)
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
         metrans.run_session(0, opts, device="cpu")
     if field == "audio_filter_desc":

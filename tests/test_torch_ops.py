@@ -1,6 +1,6 @@
 """The port's separate-op path against the JAX package on the same inputs:
-resize, crop, flip, gaussian smooth, YUV->RGB and preprocess_nchw with
-use_kernel="never" / exact=True."""
+resize, crop, flip, gaussian and median smooth, YUV->RGB, preprocess
+on RGB input and preprocess_nchw with use_kernel="never" / exact=True."""
 import numpy as np
 import pytest
 import torch
@@ -132,8 +132,12 @@ def test_smooth_op_matches_jax(rng, fmt):
         assert d.max() <= 1
     with pytest.raises(ValueError, match="odd"):
         smooth.smooth(fb, "gaussian", 4, 3)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        smooth.smooth(fb, "median", 3, 3)
+    # the median is an integer op: equal to the JAX one
+    want = jsmooth.smooth(jfb, "median", 3, 5)
+    got = smooth.smooth(fb, "median", 3, 5)
+    for k in want.planes:
+        np.testing.assert_array_equal(got.planes[k].numpy(),
+                                      np.asarray(want.planes[k]))
 
 
 @pytest.mark.parametrize("fmt,out", [("yuv420p", "rgb24"),
@@ -181,9 +185,23 @@ def test_preprocess_nchw_never_matches_jax(rng, fmt, kw):
     assert d.max() <= 1.0 + 1e-3 and d.mean() < 0.01
 
 
-def test_preprocess_rgb_input_waits_for_slice_3(rng):
-    fb = FrameBatch.from_numpy(
-        {"rgb": rng.integers(0, 256, (1, 8, 8, 3)).astype(np.uint8)},
-        "rgb24", 8, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        fused.preprocess(fb, 4, 4)
+@pytest.mark.parametrize("out", ["rgbpf32", "rgb24", "yuv420p"])
+def test_preprocess_rgb_input_matches_jax(rng, out):
+    """RGB input to preprocess: crop, resize, smooth, flip, then convert,
+    as gmat_tpu/ops/fused.preprocess does it."""
+    rgb = rng.integers(0, 256, (1, 32, 48, 3)).astype(np.uint8)
+    jfb, fb = _pair({"rgb": rgb}, "rgb24", 48, 32)
+    kw = dict(method="bilinear", smooth=(3, 3, 0.0, 0.0, "reflect"),
+              flip_code=1, crop_box=(8, 4, 32, 24))
+    if out == "rgbpf32":
+        kw.update(norm=127.5, shift=(127.5, 127.5, 127.5))
+    want = jfused.preprocess(jfb, 20, 12, out, **kw)
+    got = fused.preprocess(fb, 20, 12, out, **kw)
+    assert (got.format, got.width, got.height) == (out, 20, 12)
+    for k, w in want.planes.items():
+        a, b = got.planes[k].numpy(), np.asarray(w)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if b.dtype == np.float32:
+            np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+        else:     # f32 resample sums in another order: 1 LSB
+            assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
