@@ -9,9 +9,10 @@ nvcc, runs the port's main paths at full size -- `preprocess_nchw` on a
 the same batch as NV12 and a 10-bit one as P010 -> the same output; the
 filter graph on a 32 x 1080p batch; and the ABR ladder: a 96-frame 1080p
 Y4M file -> `decode_stream` -> `metrans.ladder_step` -> rung planes on
-the host, whose batches are also scene-scored, and the same file through
-the filtered ABR path (common graph -> ladder -> rung graphs) -- and
-holds every kernel against its plain PyTorch version on the card:
+the host, whose batches are also scene-scored, the same file through the
+filtered ABR path (common graph -> ladder -> rung graphs), and a 10-bit
+PQ file through the HDR10 -> SDR chain as the common graph -- and holds
+every kernel against its plain PyTorch version on the card:
 
   device           card name, compute capability, power limit, kernel build
   main_path        K1 (ladder_i8) through preprocess_nchw, quality gate vs
@@ -25,14 +26,17 @@ holds every kernel against its plain PyTorch version on the card:
                    plain version and its planar twin; K7 on 8 x 8K NV12
   wire_ragged      the wire kernels on 4 x 998x562 NV12 / P010 -> 225x223
                    (499 U,V pairs a row): K6 bilinear and bicubic, K7, K8
-  filter_graph     every ported filter (filters/builtin part 1) through
-                   FilterGraph on 32 x 1080p: each pure filter alone and
-                   the long FILTER_CHAIN, then yadif, bwdif, select, fps,
-                   trim, setpts and thumbnail on 3 batches of 4 frames
-                   with flush; outputs on the card, held against the CPU
-                   run on 4 frames (0 LSB, 1 for resamplers and
-                   conversions), ms per 32 x 1080p batch; then a 10-bit
-                   leg (12 x 960x544 yuv420p10: u16 planes on the card)
+  filter_graph     every ported filter (filters/builtin, filters/hdr)
+                   through FilterGraph on 32 x 1080p (or its rgb24, rgba
+                   or linear-light conversion): each pure filter alone and
+                   the long FILTER_CHAIN, then the stream and keep-mask
+                   filters (yadif ... thumbnail, hue, hqdn3d, deband,
+                   noise, vignette, FILTER_CHAIN_2) on 3 batches of 4
+                   frames with flush; outputs on the card, held against
+                   the CPU run on 4 frames (0 LSB, 1 for float math,
+                   resamplers and conversions), ms per 32 x 1080p batch;
+                   then a 10-bit leg (12 x 960x544 yuv420p10: u16 planes
+                   on the card)
   abr_ladder       K4 through the ABR path on the 1080p ladder 720p/540p/360p,
                    where the int8 tap gate picks the bf16 rows (rungs_bf16);
                    rung files written and read back as Y4M
@@ -42,6 +46,13 @@ holds every kernel against its plain PyTorch version on the card:
                    rung; one rungs_i8 launch per batch (flush included),
                    the first batch against the CPU run (0 LSB), source
                    frames/s beside abr_ladder_i8's
+  abr_hdr          a 64-frame 1080p 10-bit PQ Y4M through decode_stream
+                   and `metrans.filtered_step` with the HDR10 -> SDR chain
+                   as the common graph, K4-int8 on 720p/360p: one rungs_i8
+                   launch per batch, 64 frames per rung, the common graph
+                   within 1 LSB of the CPU on 4 frames, the first batch's
+                   rungs 0 LSB from the plain version on the card's own
+                   common output; source frames/s beside abr_ladder_i8's
   rungs_bf16       bf16 rows forced on the first batch, both ladders
   rungs_i8_forced  int8 rows forced on the 720p/540p/360p ladder
   rungs_wide       K5 (rungs_i8 at 8 x 4K) and a nearest-neighbour ladder
@@ -125,6 +136,15 @@ FILTER_CHAIN = ("crop=1920:1072:0:4,smooth=type=median:kw=5:kh=5,"
                 "rotate=angle=5,hflip,transpose=1,pad=iw+16:ih+16:8:8,"
                 "scale=1280:-2,eq=contrast=1.2,lutyuv=y=gammaval(0.9),"
                 "unsharp=5:5:0.8,format=rgbpf32le")
+# (spec, bound[, source]): the source batch is the 1080p yuv420p one unless
+# named -- "rgb24", "rgba" (both converted from it on the card) or
+# "linear" (its rgbpf32 conversion times 4: linear light above 1, the
+# tonemap filter's input); lut3d/lut1d read the seeded .cube files
+# (LUT3D_FILE, LUT1D_FILE) the phase writes to its temp dir.  Bounds: 0
+# for integer filters, 1 for float math (its exp/pow/cos/log may differ
+# by an ulp between the card and the CPU) and for the resamplers and
+# conversions
+LUT3D_FILE, LUT1D_FILE = "grade.cube", "curve.cube"
 PURE_FILTERS = (
     ("crop=1920:1072:0:4", 0), ("crop_nvcv=1280:720", 0),
     ("rotate=angle=5", 1), ("rotate_nvcv=30:cubic", 1),
@@ -139,30 +159,81 @@ PURE_FILTERS = (
     ("scale_cuda=640:360:bicubic", 1), ("scale_npp=960:540:area", 1),
     ("format=rgbpf32le", 1), ("format_cuda=yuv444p", 1), ("null", 0),
     ("hwupload_cuda", 0), ("chromakey=0x00FF00:0.2:0.1", 1),
-    (FILTER_CHAIN, 1))
+    (FILTER_CHAIN, 1),
+    # filters/builtin.py part 2 and filters/hdr.py
+    ("negate", 0), ("swapuv", 0), ("extractplanes=u", 0),
+    ("monochrome=cb=0.3:cr=-0.2:size=2:high=0.3", 1),
+    ("drawbox=x=160:y=90:w=640:h=360:color=red@0.5:t=8", 0),
+    ("boxblur=2:1", 0), ("gblur=sigma=1.5", 1), ("sharpen_npp", 0),
+    ("delogo=x=1600:y=40:w=240:h=120", 0),
+    ("zscale=tin=bt709:pin=bt709:p=bt2020:t=linear:npl=100", 1),
+    ("colorchannelmixer=0.5:0.3:0.2:0:0.1:0.8:0.1", 0, "rgb24"),
+    ("colorbalance=rs=0.3:gm=-0.2:bh=0.4", 1, "rgb24"),
+    ("colorbalance=rs=0.3:gm=-0.2:bh=0.4:pl=1", 1, "rgb24"),
+    ("curves=preset=vintage", 0, "rgb24"),
+    ("colortemperature=4000:0.8:0.5", 1, "rgb24"),
+    (f"lut3d={LUT3D_FILE}:tetrahedral", 1, "rgb24"),
+    (f"lut1d={LUT1D_FILE}:cubic", 1, "rgb24"),
+    ("drawbox=100:100:400:300:blue@0.7:fill", 0, "rgb24"),
+    ("alphaextract", 0, "rgba"),
+    ("exposure=1:0.05", 1, "linear"),
+    ("tonemap=hable:desat=0", 1, "linear"),
+    ("tonemap=tonemap=mobius:param=0.3:desat=2", 1, "linear"))
 # the stream and keep-mask filters: 3 batches of FILTER_CPU_FRAMES frames
 # (a scene cut at FILTER_CUT) through process and flush, card and CPU
+# the long chain of the denoise and grain filters (stream filters among
+# them, so it runs here)
+FILTER_CHAIN_2 = ("hqdn3d,deband,format=rgb24,colorbalance=rs=0.1,"
+                  "curves=preset=vintage,format=yuv420p,gblur=sigma=1.5,"
+                  "vignette,noise=alls=8:allf=t")
 STREAM_FILTERS = ("yadif", "yadif=1", "bwdif", "bwdif=send_frame",
                   r"select=gt(scene\,0.3)", "fps=15",
                   "trim=start_frame=2:end_frame=9", "setpts=PTS-STARTPTS",
-                  "thumbnail=4")
+                  "thumbnail=4",
+                  "hue=h=30:s=1.2:b=0.5", "hqdn3d", "deband",
+                  "noise=alls=20:allf=t", "vignette", FILTER_CHAIN_2)
+# checked on a LEG_CUT cut of the batch (its CPU reference at 1080p would
+# cost ~20 s of the script), timed at 32 x 1080p
+STREAM_ON_CUT = (FILTER_CHAIN_2,)
+# timed by one call, without a warm-up (the check before it ran the same
+# path): each call is a host loop of thousands of launches (the IIR
+# scans) or of LFG draws
+FILTER_SLOW = ("gblur=sigma=1.5", "hqdn3d", "noise=alls=20:allf=t",
+               FILTER_CHAIN_2)
 # the 10-bit leg (yuv420p10, u16 planes on the card, LEG_10BIT = (h, w)):
 # checked, not timed
-LEG_10BIT = (544, 960)
+LEG_10BIT = LEG_CUT = (544, 960)
 PURE_FILTERS_10BIT = (
     ("crop=960:536:0:4", 0), ("rotate=angle=5", 1),
     ("pad=iw+16:ih+16:8:8:red", 0), ("lutyuv=y=negval:u=val*0.9", 0),
     ("unsharp=5:5:0.8:5:5:0.4", 0), ("hflip", 0), ("transpose=1", 0),
     ("smooth=type=median:kw=3:kh=3", 0), ("scale=640:-2", 1),
-    ("format=p010", 0), ("format=rgb48", 1))
+    ("format=p010", 0), ("format=rgb48", 1),
+    ("negate", 0), ("swapuv", 0), ("extractplanes=v", 0),
+    ("monochrome=0.2:0.1", 1), ("boxblur=2:1", 0), ("gblur=sigma=1.5", 1),
+    ("format=rgb48,colorchannelmixer=0.9:0.1", 1),
+    ("format=rgb48,curves=preset=vintage", 1),
+    ("zscale=tin=smpte2084:min=bt2020nc:pin=bt2020:t=linear:npl=100", 1))
 STREAM_FILTERS_10BIT = ("yadif=1", "bwdif=send_frame",
                         r"select=gt(scene\,0.3)", "thumbnail=4",
-                        r"select=not(mod(n\,2)),yadif")
+                        r"select=not(mod(n\,2)),yadif",
+                        "hqdn3d", "deband", "hue=h=30:b=0.5")
 # the filtered ABR path: perf.py:712's ladder (LADDER_1080_I8) between a
 # common yadif and perf.py:722-723's three rung filters
 ABR_COMMON = "yadif=0:-1:0"
 ABR_RUNG_FILTERS = ("eq=contrast=1.2:brightness=0.05,"
                     "lutyuv=y=gammaval(0.9):u=val:v=val,unsharp=5:5:0.8")
+# the HDR10 -> SDR ABR path: a 10-bit PQ source (BT.2020, limited range)
+# through tests/test_tonemap.py:243's chain with explicit input tags (the
+# metrans graphs get no stream meta) as the common graph, then the int8
+# ladder (LADDER_1080_I8); the card's common output is held to 1 LSB of
+# the CPU's on its first ABR_HDR_CPU_FRAMES frames (f32 pow/exp/log), the
+# rungs to 0 LSB of the rung kernel's plain version on that output
+ABR_HDR_FRAMES, ABR_HDR_CPU_FRAMES, LSB_HDR = 64, 4, 1
+ABR_HDR_COMMON = (
+    "zscale=tin=smpte2084:min=bt2020nc:pin=bt2020:t=linear:npl=100,"
+    "format=gbrpf32le,zscale=p=bt709,tonemap=tonemap=hable:desat=0,"
+    "zscale=t=bt709:m=bt709:r=tv,format=yuv420p")
 AV_LIBS = ("avformat", "avcodec", "avutil", "swscale", "swresample")
 # smart decode clip: test_extractor.py's, 60 frames with a cut at 30
 SMART_SIZE, SMART_FRAMES, SMART_CUT = (320, 240), 60, 30
@@ -216,11 +287,12 @@ def smooth_content(h: int, w: int):
     return sy[None], su[None], sv[None]
 
 
-def event_ms(fn, calls: int = 10, reps: int = 7):
+def event_ms(fn, calls: int = 10, reps: int = 7, warm: int = 2):
     """Median over `reps` of the mean device time of `calls` calls of
-    fn(i) (CUDA events), every run, and the median host time to issue a
-    call (no synchronisation inside the loop)."""
-    for i in range(2):
+    fn(i) (CUDA events) after `warm` untimed calls, every run, and the
+    median host time to issue a call (no synchronisation inside the
+    loop)."""
+    for i in range(warm):
         fn(i)
     torch.cuda.synchronize()
     times, host = [], []
@@ -392,6 +464,45 @@ def wire_bound(ladder, kind, geom, n, itemsize):
     dense = n * (h * 3 // 2) * w * itemsize + out_bytes
     return finish_bound(total, n * ops_row, n * ops_col,
                         ladder._WIRE[kind].row, dense)
+
+
+def write_y4m_pq(path: str, n: int, h: int, w: int, seed: int) -> None:
+    """A 10-bit 4:2:0 Y4M, PQ-coded BT.2020 limited range: a luma ramp
+    over codes 64-900 (highlights on the steep end of the PQ curve) that
+    moves from frame to frame, chroma around 512, seeded noise."""
+    from gmat_tpu_torch.av.rawvideo import Y4MWriter
+    rng = np.random.default_rng(seed)
+    ramp_y = np.add.outer(np.linspace(0, 120, h), np.linspace(64, 780, w))
+    ramp_c = np.add.outer(np.linspace(-40, 40, h // 2),
+                          np.linspace(-30, 30, w // 2))
+    wr = Y4MWriter(path, w, h, (30, 1), bits=10)
+    try:
+        for i in range(n):
+            y = ramp_y + 4 * (i % 16) + rng.integers(-12, 13, ramp_y.shape)
+            u = 512 + ramp_c + (i % 8) + rng.integers(-16, 17, ramp_c.shape)
+            v = 512 - ramp_c - (i % 8) + rng.integers(-16, 17, ramp_c.shape)
+            wr.write(*(np.clip(p, 64, 960).astype(np.uint16)
+                       for p in (y, u, v)))
+    finally:
+        wr.close()
+
+
+def write_luts(tmp: str, seed: int) -> None:
+    """The seeded .cube files of the lut3d and lut1d specs: a 17^3 grade
+    near identity and a 1D curve, under `tmp`."""
+    rng = np.random.default_rng(seed)
+    g = np.linspace(0.0, 1.0, 17)
+    b, gg, r = np.meshgrid(g, g, g, indexing="ij")   # red fastest
+    lut = np.stack([r, gg, b], -1).reshape(-1, 3)
+    lut = np.clip(lut ** 0.9 + rng.normal(0, 0.02, lut.shape), 0, 1)
+    with open(os.path.join(tmp, LUT3D_FILE), "w") as f:
+        f.write("TITLE \"seeded grade\"\nLUT_3D_SIZE 17\n")
+        f.writelines(f"{x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in lut)
+    curve = np.sort(np.clip(np.linspace(0, 1, 64)[:, None] ** [0.8, 1.0, 1.2]
+                            + rng.normal(0, 0.01, (64, 3)), 0, 1), axis=0)
+    with open(os.path.join(tmp, LUT1D_FILE), "w") as f:
+        f.write("LUT_1D_SIZE 64\n")
+        f.writelines(f"{x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in curve)
 
 
 def write_y4m_source(path: str, n: int, h: int, w: int, seed: int) -> None:
@@ -664,56 +775,87 @@ def stream_filter(spec: str, fb):
     return kept, graphs["card"].fps_mul
 
 
+def filter_sources(fb) -> dict:
+    """The source batches of PURE_FILTERS, made on the card from the
+    1080p yuv420p batch."""
+    from gmat_tpu_torch.ops import csc
+    lin = csc.convert(fb, "rgbpf32")
+    return {"yuv420p": fb, "rgb24": csc.convert(fb, "rgb24"),
+            "rgba": csc.convert(fb, "rgba"),
+            "linear": lin.with_planes({"rgb": lin.planes["rgb"] * 4.0})}
+
+
 def filter_graph_phase():
     """Every ported filter on the card: each pure filter alone and the
-    long chain on a 32 x 1080p batch, the stream and keep-mask filters on
-    a 3-batch sequence through process and flush; every output held
-    against the port's own CPU run on the same frames and timed at
-    32 x 1080p (ms per batch, median of 3 single calls).  Then the 10-bit
+    long chain on a 32 x 1080p batch (or its rgb24, rgba or linear-light
+    float conversion), the stream and keep-mask filters on a 3-batch
+    sequence through process and flush; every output held against the
+    port's own CPU run on the same frames and timed at 32 x 1080p (ms per
+    batch, median of 3 single calls; FILTER_SLOW one).  Then the 10-bit
     leg: the filters that take 16-bit planes on a yuv420p10 cut of the
     batch, checked, not timed."""
     from gmat_tpu_torch.filters.graph import FilterGraph
     t_phase = time.perf_counter()
-    fb = filter_frames(FILTER_BATCH, SEED + 7)
-    pure = {}
-    for spec, tol in PURE_FILTERS:
-        g, out, err = pure_filter(spec, fb, tol)
-        ms, runs, host = event_ms(lambda i: g.process(fb), calls=1, reps=3)
-        pure[spec] = {"out": f"{out.format} {out.width}x{out.height}",
-                      "max_lsb_vs_cpu": err, "bound_lsb": tol,
-                      "ms_per_batch": ms, "runs_ms": runs, "host_ms": host}
-        del out
-    stream = {}
-    for spec in STREAM_FILTERS:
-        kept, fps_mul = stream_filter(spec, fb)
-        g = FilterGraph(spec)
-        ms, runs, host = event_ms(
-            lambda i: g.process(fb, pts=np.arange(i * FILTER_BATCH,
-                                                  (i + 1) * FILTER_BATCH),
-                                times=np.arange(FILTER_BATCH) / 30.0),
-            calls=1, reps=3)
-        stream[spec] = {"frames_in": 3 * FILTER_CPU_FRAMES,
-                        "frames_out": kept, "fps_mul": fps_mul,
-                        "max_lsb_vs_cpu": 0, "ms_per_batch": ms,
-                        "runs_ms": runs, "host_ms": host}
-    # the 10-bit leg: the same content at 10 bits (x << 2 | 2), its first
-    # 3 x FILTER_CPU_FRAMES frames cut to 960x544 (the CPU references
-    # stay short)
-    n, (h, w) = 3 * FILTER_CPU_FRAMES, LEG_10BIT
-    planes10 = {}
-    for k, v in fb.planes.items():
-        sub = 0 if k == "y" else 1          # 4:2:0 chroma
-        cut = v[:n, :h >> sub, :w >> sub].to(torch.int32)
-        planes10[k] = ((cut << 2) | 2).to(torch.uint16)
-    fb10 = fb.with_planes(planes10, "yuv420p10", w, h)
-    del fb
-    leg10 = {}
-    for spec, tol in PURE_FILTERS_10BIT:
-        leg10[spec] = {"max_lsb_vs_cpu": pure_filter(spec, fb10, tol)[2],
-                       "bound_lsb": tol}
-    for spec in STREAM_FILTERS_10BIT:
-        leg10[spec] = {"frames_out": stream_filter(spec, fb10)[0],
-                       "max_lsb_vs_cpu": 0}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_luts_")
+    try:
+        write_luts(tmp, SEED + 3)
+        fb = filter_frames(FILTER_BATCH, SEED + 7)
+        sources = filter_sources(fb)
+        pure = {}
+        for spec, tol, *src in PURE_FILTERS:
+            src = src[0] if src else "yuv420p"
+            path_spec = spec
+            for name in (LUT3D_FILE, LUT1D_FILE):
+                path_spec = path_spec.replace(name, os.path.join(tmp, name))
+            g, out, err = pure_filter(path_spec, sources[src], tol)
+            slow = spec in FILTER_SLOW
+            ms, runs, host = event_ms(lambda i: g.process(sources[src]),
+                                      calls=1, reps=1 if slow else 3,
+                                      warm=0 if slow else 2)
+            pure[spec] = {"source": src,
+                          "out": f"{out.format} {out.width}x{out.height}",
+                          "max_lsb_vs_cpu": err, "bound_lsb": tol,
+                          "ms_per_batch": ms, "runs_ms": runs,
+                          "host_ms": host}
+            del out
+        del sources
+        n, (h, w) = 3 * FILTER_CPU_FRAMES, LEG_CUT
+        fb_cut = fb.with_planes(
+            {k: v[:n, :h >> (k != "y"), :w >> (k != "y")].contiguous()
+             for k, v in fb.planes.items()}, width=w, height=h)
+        stream = {}
+        for spec in STREAM_FILTERS:
+            on_cut = spec in STREAM_ON_CUT
+            kept, fps_mul = stream_filter(spec, fb_cut if on_cut else fb)
+            g = FilterGraph(spec)
+            slow = spec in FILTER_SLOW
+            ms, runs, host = event_ms(
+                lambda i: g.process(fb, pts=np.arange(i * FILTER_BATCH,
+                                                      (i + 1) * FILTER_BATCH),
+                                    times=np.arange(FILTER_BATCH) / 30.0),
+                calls=1, reps=1 if slow else 3, warm=0 if slow else 2)
+            stream[spec] = {"frames_in": 3 * FILTER_CPU_FRAMES,
+                            "checked_on": [n, h, w] if on_cut else
+                            [n, H, W],
+                            "frames_out": kept, "fps_mul": fps_mul,
+                            "max_lsb_vs_cpu": 0, "ms_per_batch": ms,
+                            "runs_ms": runs, "host_ms": host}
+        # the 10-bit leg: the same cut at 10 bits (x << 2 | 2): its first
+        # 3 x FILTER_CPU_FRAMES frames at 960x544 (the CPU references
+        # stay short)
+        fb10 = fb_cut.with_planes(
+            {k: ((v.to(torch.int32) << 2) | 2).to(torch.uint16)
+             for k, v in fb_cut.planes.items()}, "yuv420p10")
+        del fb, fb_cut
+        leg10 = {}
+        for spec, tol in PURE_FILTERS_10BIT:
+            leg10[spec] = {"max_lsb_vs_cpu": pure_filter(spec, fb10, tol)[2],
+                           "bound_lsb": tol}
+        for spec in STREAM_FILTERS_10BIT:
+            leg10[spec] = {"frames_out": stream_filter(spec, fb10)[0],
+                           "max_lsb_vs_cpu": 0}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     emit("filter_graph", source=[FILTER_BATCH, H, W], scene_cut=FILTER_CUT,
          cpu_frames=FILTER_CPU_FRAMES, pure=pure, stream=stream,
          yuv420p10={"source": [n, h, w], **leg10},
@@ -818,6 +960,123 @@ def abr_filtered(rungs, path, sizes, bare_fps):
          wall_s=wall, source_frames_per_s=fps,
          bare_ladder_source_frames_per_s=bare_fps,
          phase_s=time.perf_counter() - t_phase)
+    return counts
+
+
+class GraphTap:
+    """A FilterGraph that keeps its first output batch: the common graph
+    of the HDR path, so that the phase can check the card's own output
+    of the timed run."""
+
+    def __init__(self, graph):
+        self.graph, self.first = graph, None
+
+    def process(self, fb, **kw):
+        out, keep = self.graph.process(fb, **kw)
+        if self.first is None:
+            self.first = (out, keep)
+        return out, keep
+
+    @property
+    def out_pts(self):
+        return self.graph.out_pts
+
+
+def abr_hdr(rungs, tmp, sizes, bare_fps):
+    """The HDR10 -> SDR ABR path once: a 64-frame 1080p 10-bit PQ Y4M ->
+    decode_stream(bits=10) -> metrans.filtered_step with ABR_HDR_COMMON
+    as the common graph -> the int8 ladder -> rung planes on the host.
+    One rungs_i8 launch per batch, none of rungs_bf16, 64 frames per rung;
+    the common graph's output on its first ABR_HDR_CPU_FRAMES frames
+    within LSB_HDR of the CPU's, and the first batch's rungs equal (0 LSB)
+    to the rung kernel's plain version on the card's own common output."""
+    from gmat_tpu_torch.apps import metrans
+    from gmat_tpu_torch.av.ingest import decode_stream
+    from gmat_tpu_torch.filters.graph import FilterGraph
+    t_phase = time.perf_counter()
+    path = os.path.join(tmp, "source_1080p_pq10.y4m")
+    t0 = time.perf_counter()
+    write_y4m_pq(path, ABR_HDR_FRAMES, H, W, SEED + 11)
+    write_s = time.perf_counter() - t0
+    tb = 1.0 / 30.0
+    common = GraphTap(FilterGraph(ABR_HDR_COMMON, 30.0))
+    kept = [0] * len(sizes)
+    first_src = first_rungs = None
+    zero_counts(rungs)
+    t0 = time.perf_counter()
+    steps = frames_in = 0
+    for fb, pts, valid in decode_stream(path, batch=ABR_BATCH, bits=10):
+        check(fb.format == "yuv420p10" and fb.device.type == "cuda",
+              f"abr_hdr: source batch {fb.format} on {fb.device}")
+        if first_src is None:
+            # the ingest ring reuses its buffers: the first batch, copied
+            # on the card, for the CPU reference and the graph's timing
+            first_src = fb.with_planes({k: v.clone()
+                                        for k, v in fb.planes.items()})
+        outs = metrans.filtered_step(fb, pts, valid, sizes, common, None,
+                                     {"times": pts * tb}, tb)
+        host = []
+        for r, (rb, keep) in enumerate(outs):
+            check(rb is not None and on_card(rb) and rb.format == "yuv420p"
+                  and (rb.width, rb.height) == sizes[r],
+                  f"abr_hdr: rung {r} missing, off the card or misshaped")
+            idx = torch.as_tensor(np.nonzero(keep)[0], device=rb.device)
+            host.append({k: rb.planes[k][idx].cpu() for k in "yuv"})
+            kept[r] += len(idx)
+        if first_rungs is None:
+            first_rungs = host
+        steps += 1
+        frames_in += int(valid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(rungs.LAUNCHES)
+    check(counts == {"rungs_i8": steps, "rungs_bf16": 0},
+          f"abr_hdr launches {counts}, want {steps} rungs_i8")
+    check(frames_in == ABR_HDR_FRAMES and kept == [frames_in] * len(sizes),
+          f"abr_hdr: {frames_in} frames in, {kept} out per rung")
+    # the common graph on the card against the CPU on the first frames
+    card_common, card_keep = common.first
+    check(card_common.format == "yuv420p" and bool(card_keep.all()),
+          f"abr_hdr: common output {card_common.format}")
+    want, _ = FilterGraph(ABR_HDR_COMMON, 30.0).process(
+        head_cpu(first_src, ABR_HDR_CPU_FRAMES))
+    got = head_cpu(card_common, ABR_HDR_CPU_FRAMES)
+    err_common = planes_lsb(got, want)
+    differ = sum(int((got.planes[k].to(torch.int32)
+                      != want.planes[k].to(torch.int32)).sum())
+                 for k in "yuv")
+    samples = sum(v.numel() for v in want.planes.values())
+    check(err_common <= LSB_HDR, f"abr_hdr common graph vs CPU: "
+          f"{err_common} LSB > {LSB_HDR}")
+    # the first batch's rungs against the plain version on the card's own
+    # common output, copied to the host
+    cpu_common = head_cpu(card_common, card_common.batch)
+    plain = rungs.fused_rungs(*(cpu_common.planes[k] for k in "yuv"), sizes)
+    err_rungs = 0
+    for got_r, want_r in zip(first_rungs, plain):
+        for k, wp in zip("yuv", want_r):
+            check(tuple(got_r[k].shape) == tuple(wp.shape),
+                  f"abr_hdr rung plane {tuple(got_r[k].shape)}")
+            err_rungs = max(err_rungs, rung_lsb(got_r[k], wp))
+    check(err_rungs == 0, f"abr_hdr rungs vs plain: {err_rungs} LSB")
+    timed = FilterGraph(ABR_HDR_COMMON, 30.0)
+    common_ms, common_runs, common_host = event_ms(
+        lambda i: timed.process(first_src), calls=1, reps=3)
+    fps = frames_in / wall
+    emit("abr_hdr", source=[ABR_HDR_FRAMES, H, W], bits=10, batch=ABR_BATCH,
+         common=ABR_HDR_COMMON, rungs=[f"{ow}x{oh}" for ow, oh in sizes],
+         launches=counts, ladder_steps=steps, frames_out_per_rung=kept,
+         common_max_lsb_vs_cpu=err_common, common_bound_lsb=LSB_HDR,
+         common_samples_differing=differ, common_samples=samples,
+         common_cpu_frames=ABR_HDR_CPU_FRAMES,
+         rungs_max_lsb_vs_plain_on_card_common=err_rungs,
+         rungs_plain_frames=cpu_common.batch,
+         common_ms_per_batch=common_ms, common_runs_ms=common_runs,
+         common_host_ms=common_host, write_s=write_s,
+         wall_s=wall, source_frames_per_s=fps,
+         bare_ladder_source_frames_per_s=bare_fps,
+         phase_s=time.perf_counter() - t_phase)
+    os.remove(path)
     return counts
 
 
@@ -1239,6 +1498,7 @@ def main() -> None:
                             tmp)
         check(abr_i8["quant"] == "i8", "720p/360p should take int8 rows")
         filtered = abr_filtered(rungs, src, LADDER_1080_I8, abr_i8["fps"])
+        hdr = abr_hdr(rungs, tmp, LADDER_1080_I8, abr_i8["fps"])
         rung_src = [tuple(b[0].planes[k] for k in "yuv")
                     for b in abr["batches"][:2]]
         for b in abr["batches"] + abr_i8["batches"]:
@@ -1492,6 +1752,7 @@ def main() -> None:
                        max(abr_i8_plain, forced["i8"]), "rungs.cu",
                        max(abr_i8_plain, forced["i8"]))
     rungs_i8_row["launches_abr_filtered"] = filtered["rungs_i8"]
+    rungs_i8_row["launches_abr_hdr"] = hdr["rungs_i8"]
     kernels = [
         row("ladder_i8", "ladder_i8", 455, "_ladder_kernel_i8",
             main_counts["ladder_i8"], err_k1),

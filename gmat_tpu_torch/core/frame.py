@@ -34,6 +34,15 @@ def same_bits(fn, *planes, **kw) -> torch.Tensor:
         torch.uint16)
 
 
+def set_channels(arr: torch.Tensor, order: str, new: dict) -> torch.Tensor:
+    """A packed (..., C) tensor with the channels named in `new` (name ->
+    tensor of any integer or float dtype) replaced, in `arr`'s dtype;
+    `order` names arr's channels."""
+    chans = [new[ch].to(arr.dtype) if ch in new else arr[..., i]
+             for i, ch in enumerate(order)]
+    return same_bits(lambda *c: torch.stack(c, dim=-1), *chans)
+
+
 def to_device(arr: np.ndarray, device) -> torch.Tensor:
     """numpy -> tensor on `device`.  A CUDA device without a card raises:
     there is no silent CPU fallback."""

@@ -13,8 +13,9 @@ Execution model: consecutive *pure* filters are composed into one
 function that runs eagerly on the batch's device (the JAX package jits
 each such segment; PyTorch needs no trace).  Keep-mask filters
 (select/fps/trim) evaluate masks between pure segments; stream filters
-(yadif/bwdif/setpts/thumbnail) may change the batch size and carry
-state across batches.
+(yadif/bwdif/setpts/thumbnail, and the per-frame filters that carry
+state: hqdn3d, deband, noise, vignette, hue) may change the batch size
+and carry state across batches.
 """
 from __future__ import annotations
 
@@ -207,17 +208,26 @@ class FilterGraph:
     After each process() call, out_pts/out_times/out_keys hold the
     metadata matching the *returned* batch (stream filters may delay,
     drop, or double frames).  flush() drains stateful filters at EOF.
+
+    `link_state` is the build-time analog of AVFilterLink property
+    propagation: seeded from `stream_meta` (a stream probe's color_trc,
+    primaries and mdcv/clli side data), read and rewritten in chain
+    order by the link-aware filters (zscale, tonemap; filters/hdr.py).
     """
 
-    def __init__(self, spec: str, src_fps: float = 30.0):
+    def __init__(self, spec: str, src_fps: float = 30.0,
+                 stream_meta: Optional[Dict] = None):
         self.spec = spec
         self.segments: List = []
+        self.link_state: Dict = dict(stream_meta or {})
         pure: List = []
         for name, kwargs in parse_graph(spec):
             factory = FILTERS[name]
             if name in ("fps", "tpad", "framerate", "telecine",
                         "detelecine", "xfade", "zoompan"):
                 kwargs.setdefault("src_fps", src_fps)
+            if getattr(factory, "wants_link", False):
+                kwargs.setdefault("_link", self.link_state)
             inst = factory(**kwargs)
             if getattr(inst, "batch_control", False):
                 kind = "control"

@@ -163,8 +163,31 @@ def test_tables_match_jax():
 @pytest.mark.parametrize("name", sorted(builtin._LATER))
 def test_later_filters_name_their_roadmap_item(name):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1, "
-                                                  r"item \d"):
+                                                  r"(item \d|slice 3, part 3)"):
         graph.FilterGraph(name)
+
+
+# the options a filter needs to build (the rest build with none)
+_BUILD_OPTS = {"crop": "=16:16", "crop_nvcv": "=16:16", "scale": "=32:16",
+               "scale_cuda": "=32:16", "scale_npp": "=32:16",
+               "delogo": "=4:4:8:8"}
+
+
+@pytest.mark.parametrize("name", sorted(jbuiltin.FILTERS))
+def test_every_filter_name_builds_or_names_its_item(name):
+    """All 87 JAX filter names: each builds in the port and runs on a
+    small batch as the JAX one does, or raises NotImplementedError naming
+    the ROADMAP.md item that ports it."""
+    spec = name + _BUILD_OPTS.get(name, "")
+    if name in builtin._LATER:
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP\.md queue 1, "
+                                 r"(item \d|slice 3, part 3)"):
+            graph.FilterGraph(spec)
+        return
+    g = graph.FilterGraph(spec)
+    assert [k for k, _ in g.segments] == \
+        [k for k, _ in jgraph.FilterGraph(spec).segments]
 
 
 def test_unknown_filter_raises_filter_error():

@@ -34,7 +34,12 @@ def test_import_pulls_in_no_jax():
         "gmat_tpu_torch.ops.geometry, gmat_tpu_torch.ops.smooth, "
         "gmat_tpu_torch.ops.enhance, gmat_tpu_torch.ops.yadif, "
         "gmat_tpu_torch.ops.bwdif, gmat_tpu_torch.filters.expr, "
-        "gmat_tpu_torch.filters.builtin, gmat_tpu_torch.filters.graph\n"
+        "gmat_tpu_torch.filters.builtin, gmat_tpu_torch.filters.graph, "
+        "gmat_tpu_torch.filters.hdr, gmat_tpu_torch.filters.lut3d, "
+        "gmat_tpu_torch.core.transfer, gmat_tpu_torch.ops.tonemap, "
+        "gmat_tpu_torch.ops.blur, gmat_tpu_torch.ops.hqdn3d, "
+        "gmat_tpu_torch.ops.deband, gmat_tpu_torch.ops.noise, "
+        "gmat_tpu_torch.ops.vignette, gmat_tpu_torch.ops.delogo\n"
         "bad = [m for m in sys.modules if m.startswith('jax') "
         "or m == 'gmat_tpu' or m.startswith('gmat_tpu.')]\n"
         "print(bad)\n"
