@@ -10,8 +10,9 @@ the same batch as NV12 and a 10-bit one as P010 -> the same output; the
 filter graph on a 32 x 1080p batch; and the ABR ladder: a 96-frame 1080p
 Y4M file -> `decode_stream` -> `metrans.ladder_step` -> rung planes on
 the host, whose batches are also scene-scored, the same file through the
-filtered ABR path (common graph -> ladder -> rung graphs), and a 10-bit
-PQ file through the HDR10 -> SDR chain as the common graph -- and holds
+filtered ABR path (common graph -> ladder -> rung graphs), a 10-bit
+PQ file through the HDR10 -> SDR chain as the common graph, and a
+telecined file through inverse telecine as the common graph -- and holds
 every kernel against its plain PyTorch version on the card:
 
   device           card name, compute capability, power limit, kernel build
@@ -36,7 +37,11 @@ every kernel against its plain PyTorch version on the card:
                    the CPU run on 4 frames (0 LSB, 1 for float math,
                    resamplers and conversions), ms per 32 x 1080p batch;
                    then a 10-bit leg (12 x 960x544 yuv420p10: u16 planes
-                   on the card)
+                   on the card); the temporal and structural filters
+                   (separatefields ... psnr/ssim, STREAM_FILTERS_3) the
+                   same way, some checked on a cut, each timed at 32 x
+                   1080p (the per-pixel expressions on a cut); every
+                   blend mode on 16-bit planes against the CPU
   abr_ladder       K4 through the ABR path on the 1080p ladder 720p/540p/360p,
                    where the int8 tap gate picks the bf16 rows (rungs_bf16);
                    rung files written and read back as Y4M
@@ -53,6 +58,15 @@ every kernel against its plain PyTorch version on the card:
                    within 1 LSB of the CPU on 4 frames, the first batch's
                    rungs 0 LSB from the plain version on the card's own
                    common output; source frames/s beside abr_ladder_i8's
+  abr_ivtc         the ABR source's first 64 frames through telecine (3:2
+                   pulldown) into an 80-frame 30/1 Y4M, back through
+                   `metrans.filtered_step` with detelecine and a fade in
+                   as the common graph, K4-int8 on 720p/360p: one
+                   rungs_i8 launch per non-empty batch, 24/1 and the
+                   frame counts of the CPU run, the post-fade frames 0
+                   LSB from the progressive source, the first batch 0
+                   LSB from the CPU, its rungs 0 LSB from the plain
+                   version; source frames/s beside abr_ladder_i8's
   rungs_bf16       bf16 rows forced on the first batch, both ladders
   rungs_i8_forced  int8 rows forced on the 720p/540p/360p ladder
   rungs_wide       K5 (rungs_i8 at 8 x 4K) and a nearest-neighbour ladder
@@ -178,7 +192,10 @@ PURE_FILTERS = (
     ("alphaextract", 0, "rgba"),
     ("exposure=1:0.05", 1, "linear"),
     ("tonemap=hable:desat=0", 1, "linear"),
-    ("tonemap=tonemap=mobius:param=0.3:desat=2", 1, "linear"))
+    ("tonemap=tonemap=mobius:param=0.3:desat=2", 1, "linear"),
+    # filters/builtin.py part 3: il is a pure row gather
+    ("il=l=d:c=d", 0), ("il=luma_mode=interleave:chroma_mode=i:"
+                        "luma_swap=1", 0))
 # the stream and keep-mask filters: 3 batches of FILTER_CPU_FRAMES frames
 # (a scene cut at FILTER_CUT) through process and flush, card and CPU
 # the long chain of the denoise and grain filters (stream filters among
@@ -213,11 +230,74 @@ PURE_FILTERS_10BIT = (
     ("monochrome=0.2:0.1", 1), ("boxblur=2:1", 0), ("gblur=sigma=1.5", 1),
     ("format=rgb48,colorchannelmixer=0.9:0.1", 1),
     ("format=rgb48,curves=preset=vintage", 1),
-    ("zscale=tin=smpte2084:min=bt2020nc:pin=bt2020:t=linear:npl=100", 1))
+    ("zscale=tin=smpte2084:min=bt2020nc:pin=bt2020:t=linear:npl=100", 1),
+    ("il=l=d:c=d", 0))
 STREAM_FILTERS_10BIT = ("yadif=1", "bwdif=send_frame",
                         r"select=gt(scene\,0.3)", "thumbnail=4",
                         r"select=not(mod(n\,2)),yadif",
                         "hqdn3d", "deband", "hue=h=30:b=0.5")
+# the temporal and structural filters (filters/builtin part 3): (spec,
+# bound in u8 LSBs, where it is checked).  "full": the 3 x
+# FILTER_CPU_FRAMES frames of the 1080p batch; "cut": the same frames cut
+# to LEG_CUT (their CPU reference at 1080p would cost seconds of the
+# script: zoompan's per-output gathers, the blends' int32 chains, fade,
+# framerate's blends, the transitions, the metrics' f32 reductions);
+# "expr": the same frames cut to EXPR_CUT, for the expressions evaluated
+# per pixel on the host (vf_blend's cN_expr, xfade's custom), which are
+# timed on that cut too (EXPR_BATCH x EXPR_CUT).  Everything else is
+# timed at FILTER_BATCH x 1080p as one process + flush of a fresh graph.
+# "{b}" is the second input (blend's bottom, xfade's second video, the
+# metrics' reference): a Y4M of SECOND_FRAMES frames at the batch's size
+# that the phase writes with write_y4m_source and seed SEED + 13; "{tmp}"
+# its temp dir, where "{dev}" tells the card's stats file from the
+# CPU's.  Bounds: 0 for integer
+# filters, 1 for float math and resampling (zoompan's bicubic gathers,
+# blend's interpolate); the psnr/ssim values within METRIC_RTOL of the
+# CPU's
+EXPR_CUT, EXPR_BATCH, SECOND_FRAMES, METRIC_RTOL = (36, 64), 8, 36, 1e-5
+STREAM_FILTERS_3 = (
+    ("separatefields", 0, "full"), ("weave=bottom", 0, "full"),
+    ("doubleweave", 0, "full"),
+    ("telecine=first_field=top:pattern=23", 0, "full"),
+    ("detelecine=first_field=top:pattern=23", 0, "full"),
+    ("shuffleframes=2|0|1|-1", 0, "full"), ("reverse", 0, "full"),
+    ("tpad=start=2:stop=3:color=red", 0, "full"),
+    ("tpad=2:2:clone:clone", 0, "full"),
+    ("loop=loop=2:size=3:start=1", 0, "full"),
+    # blends across the scene cut at FILTER_CUT, which its score gates
+    ("framerate=fps=50:scene=8.2", 0, "cut"),
+    ("fade=in:0:5", 0, "cut"), ("fade=t=out:s=2:n=6", 0, "cut"),
+    ("zoompan=z=min(zoom+0.1\\,1.5):x=iw/2-(iw/zoom/2):"
+     "y=ih/2-(ih/zoom/2):d=3:s=1280x720", 1, "cut"),
+    ("blend=all_mode=multiply:video={b}", 0, "cut"),
+    ("blend=c0_mode=heat:c1_mode=divide:c2_mode=screen:video={b}", 0,
+     "cut"),
+    ("blend=all_mode=harmonic:video={b}", 0, "cut"),
+    ("blend=all_mode=interpolate:all_opacity=0.5:video={b}", 1, "cut"),
+    ("tblend=all_mode=difference", 0, "cut"),
+    ("tblend=c0_mode=exclusion:c1_mode=heat:c2_mode=divide", 0, "cut"),
+    ("tblend=c0_expr=(A+B)/2-X*Y/64", 0, "expr"),
+    ("format=yuv444p,xfade=transition=wipeleft:duration=0.1:offset=0.05:"
+     "video={b}", 0, "cut"),
+    ("format=yuv444p,xfade=transition=fade:duration=0.2:offset=0:"
+     "video={b}", 0, "cut"),
+    ("format=yuv444p,xfade=transition=custom:duration=0.1:offset=0:"
+     "expr=A*P+B*(1-P):video={b}", 0, "expr"),
+    ("psnr=video={b}:stats_file={tmp}/{dev}_psnr.log", 0, "cut"),
+    ("ssim=video={b}:stats_file={tmp}/{dev}_ssim.log", 0, "cut"))
+# timed by one call, without a warm-up: host loops over frames (zoompan's
+# per-output taps, xfade's numpy transitions, every second input's
+# decode and upload)
+FILTER_SLOW_3 = ("zoompan", "xfade", "video=")
+# the part-3 filters that take 16-bit planes, on the 10-bit leg; the
+# framerate gate (8-bit planes only, as in the JAX filter) must raise
+STREAM_FILTERS_3_10BIT = (
+    "separatefields", "weave", "doubleweave", "telecine", "detelecine",
+    "fade=in:0:5", "tblend=c0_mode=exclusion:c1_mode=heat:c2_mode=divide",
+    "blend=all_mode=screen:video={b}")
+# every blend mode name on 16-bit planes (a grid over the whole code
+# range, where the C products wrap int32), card against CPU: 0 LSB
+BLEND16_GRID = 513
 # the filtered ABR path: perf.py:712's ladder (LADDER_1080_I8) between a
 # common yadif and perf.py:722-723's three rung filters
 ABR_COMMON = "yadif=0:-1:0"
@@ -234,6 +314,15 @@ ABR_HDR_COMMON = (
     "zscale=tin=smpte2084:min=bt2020nc:pin=bt2020:t=linear:npl=100,"
     "format=gbrpf32le,zscale=p=bt709,tonemap=tonemap=hable:desat=0,"
     "zscale=t=bt709:m=bt709:r=tv,format=yuv420p")
+# the inverse-telecine ABR path: the ABR source's first ABR_IVTC_FRAMES
+# frames through the port's telecine (3:2 pulldown, 24 -> 30 frames a
+# second's worth) into a 30/1 Y4M, then back through detelecine with a
+# fade in as the common graph, onto the int8 ladder (LADDER_1080_I8);
+# frames from ABR_IVTC_FADE_END on leave the fade untouched and must equal
+# the progressive source
+ABR_IVTC_FRAMES, ABR_IVTC_FADE_END = 64, 13
+ABR_IVTC_TELECINE = "telecine=first_field=top:pattern=23"
+ABR_IVTC_COMMON = "detelecine=first_field=top:pattern=23,fade=in:0:12"
 AV_LIBS = ("avformat", "avcodec", "avutil", "swscale", "swresample")
 # smart decode clip: test_extractor.py's, 60 frames with a cut at 30
 SMART_SIZE, SMART_FRAMES, SMART_CUT = (320, 240), 60, 30
@@ -738,14 +827,17 @@ def pure_filter(spec: str, fb, tol: float):
     return g, out, err
 
 
-def stream_filter(spec: str, fb):
+def stream_filter(spec: str, fb, tol: float = 0):
     """A stream or keep-mask filter on the first 3 x FILTER_CPU_FRAMES
     frames of a card batch, as 3 batches through process and then flush,
-    on the card and on the CPU: every output, keep mask and pts equal (0
-    LSB).  Returns (frames kept, fps_mul)."""
+    on the card and on the CPU: every keep mask and pts equal, every
+    output within `tol` LSB (0 unless named).  "{dev}" in the spec
+    becomes "card" or "cpu".  Returns (frames kept, fps_mul, largest
+    error)."""
     from gmat_tpu_torch.filters.graph import FilterGraph
     n = FILTER_CPU_FRAMES
-    graphs = {"card": FilterGraph(spec), "cpu": FilterGraph(spec)}
+    graphs = {dev: FilterGraph(spec.replace("{dev}", dev))
+              for dev in ("card", "cpu")}
     outs = {"card": [], "cpu": []}
     for b in range(3):
         part = fb.with_planes({k: v[b * n:(b + 1) * n]
@@ -761,7 +853,7 @@ def stream_filter(spec: str, fb):
     check(len(outs["card"]) == len(outs["cpu"]),
           f"filter {spec} on {fb.format}: {len(outs['card'])} outputs on "
           f"the card, {len(outs['cpu'])} on the CPU")
-    kept = 0
+    kept, worst = 0, 0.0
     for (o, k, p), (oh, kh, ph) in zip(outs["card"], outs["cpu"]):
         check(on_card(o), f"filter {spec} on {fb.format}: output off the "
               "card")
@@ -770,9 +862,11 @@ def stream_filter(spec: str, fb):
               f"filter {spec} on {fb.format}: keep masks or pts differ "
               "from the CPU")
         err = planes_lsb(o, oh)
-        check(err == 0, f"filter {spec} on {fb.format} vs CPU: {err} LSB")
+        check(err <= tol, f"filter {spec} on {fb.format} vs CPU: {err} LSB "
+              f"> {tol}")
+        worst = max(worst, err)
         kept += int(np.count_nonzero(k))
-    return kept, graphs["card"].fps_mul
+    return kept, graphs["card"].fps_mul, worst
 
 
 def filter_sources(fb) -> dict:
@@ -783,6 +877,131 @@ def filter_sources(fb) -> dict:
     return {"yuv420p": fb, "rgb24": csc.convert(fb, "rgb24"),
             "rgba": csc.convert(fb, "rgba"),
             "linear": lin.with_planes({"rgb": lin.planes["rgb"] * 4.0})}
+
+
+def cut_batch(fb, n: int, h: int, w: int):
+    """The first n frames of a yuv420p batch, cropped to h x w."""
+    return fb.with_planes(
+        {k: v[:n, :h >> (k != "y"), :w >> (k != "y")].contiguous()
+         for k, v in fb.planes.items()}, width=w, height=h)
+
+
+class SecondInputs:
+    """The second-input Y4M files of the part-3 specs, one per frame
+    size, written on first use under `tmp` (write_y4m_source, seed
+    SEED + 13)."""
+
+    def __init__(self, tmp: str):
+        self.tmp, self.paths, self.write_s = tmp, {}, 0.0
+
+    def spec(self, spec: str, fb) -> str:
+        key = (fb.height, fb.width)
+        if "{b}" in spec and key not in self.paths:
+            path = os.path.join(self.tmp, f"second_{fb.width}x{fb.height}"
+                                ".y4m")
+            t0 = time.perf_counter()
+            write_y4m_source(path, SECOND_FRAMES, fb.height, fb.width,
+                             SEED + 13)
+            self.write_s += time.perf_counter() - t0
+            self.paths[key] = path
+        return spec.replace("{b}", self.paths.get(key, "")).replace(
+            "{tmp}", self.tmp)
+
+
+def fresh_run(spec: str, fb) -> int:
+    """One process + flush of a new graph on a batch; frames out."""
+    from gmat_tpu_torch.filters.graph import FilterGraph
+    g = FilterGraph(spec)
+    pts = np.arange(fb.batch)
+    out, keep = g.process(fb, pts=pts, times=pts / 30.0)
+    kept = int(np.count_nonzero(keep))
+    for o, k, _m in g.flush():
+        kept += int(np.count_nonzero(k))
+    return kept
+
+
+def metric_files(tmp: str, kind: str) -> dict:
+    """The card's and the CPU's stats files of a psnr/ssim spec: the
+    largest relative difference of their numbers (printed to 4
+    decimals, so at least one unit of that digit is allowed)."""
+    texts = {}
+    for dev in ("card", "cpu"):
+        with open(os.path.join(tmp, f"{dev}_{kind}.log")) as f:
+            texts[dev] = f.read().splitlines()
+    check(len(texts["card"]) == len(texts["cpu"]) > 0,
+          f"{kind} stats: {len(texts['card'])} lines on the card, "
+          f"{len(texts['cpu'])} on the CPU")
+    worst = 0.0
+    for a, b in zip(texts["card"], texts["cpu"]):
+        na = [float(v) for v in re.findall(r":(-?[\d.]+)", a)]
+        nb = [float(v) for v in re.findall(r":(-?[\d.]+)", b)]
+        check(len(na) == len(nb), f"{kind} stats lines {a!r} vs {b!r}")
+        for x, y in zip(na, nb):
+            d = abs(x - y)
+            check(d <= 1e-4 * 1.0001 or d <= METRIC_RTOL * abs(y),
+                  f"{kind} stats {a!r} vs CPU {b!r}")
+            worst = max(worst, d / max(abs(y), 1e-12))
+    return {"lines": len(texts["card"]), "max_rel_diff": worst}
+
+
+def filter_part3(fb, fb_cut, tmp: str) -> dict:
+    """The temporal and structural filters on the card: each checked as
+    3 batches + flush against the CPU (stream_filter) where
+    STREAM_FILTERS_3 says, then timed; returns the phase's entries."""
+    seconds = SecondInputs(tmp)
+    h, w = EXPR_CUT
+    fb_expr = cut_batch(fb, 3 * FILTER_CPU_FRAMES, h, w)
+    fb_expr_t = cut_batch(fb, EXPR_BATCH, h, w)
+    where = {"full": fb, "cut": fb_cut, "expr": fb_expr}
+    out = {}
+    for spec, tol, at in STREAM_FILTERS_3:
+        src = where[at]
+        kept, fps_mul, err = stream_filter(seconds.spec(spec, src), src, tol)
+        entry = {"checked_on": [3 * FILTER_CPU_FRAMES, src.height,
+                                src.width], "frames_out": kept,
+                 "fps_mul": fps_mul, "max_lsb_vs_cpu": err,
+                 "bound_lsb": tol}
+        for kind in ("psnr", "ssim"):
+            if spec.startswith(kind):
+                entry["stats_vs_cpu"] = metric_files(tmp, kind)
+        timed = fb_expr_t if at == "expr" else fb
+        tspec = seconds.spec(spec, timed).replace("{dev}", "timed")
+        slow = any(name in spec for name in FILTER_SLOW_3)
+        ms, runs, host = event_ms(lambda i: fresh_run(tspec, timed),
+                                  calls=1, reps=1 if slow else 3,
+                                  warm=0 if slow else 1)
+        entry.update(timed_on=[timed.batch, timed.height, timed.width],
+                     ms_per_batch=ms, runs_ms=runs, host_ms=host)
+        out[spec] = entry
+    out["second_input_write_s"] = seconds.write_s
+    return out
+
+
+def blend16_check() -> dict:
+    """Every blend mode name on 16-bit planes on the card against the
+    same call on the CPU (0 LSB): a BLEND16_GRID^2 grid over the whole
+    code range, where the C products (2*A*B, (MAX-B)^2, MAX*A) wrap
+    int32, at opacity 1 and 0.5."""
+    from gmat_tpu_torch.ops import blend
+    g = torch.linspace(0, 65535, BLEND16_GRID).round().to(torch.int32)
+    a = g[:, None].expand(BLEND16_GRID, BLEND16_GRID)
+    b = g[None, :].expand(BLEND16_GRID, BLEND16_GRID)
+    a = a.to(torch.uint16)[None].contiguous()
+    b = b.to(torch.uint16)[None].contiguous()
+    a_c, b_c = a.cuda(), b.cuda()
+    worst = 0
+    for mode in sorted(blend.MODE_NAMES):
+        for opacity in (1.0, 0.5):
+            got = blend.blend_plane(a_c, b_c, mode, opacity, 16)
+            want = blend.blend_plane(a, b, mode, opacity, 16)
+            check(got.device.type == "cuda" and got.dtype == torch.uint16,
+                  f"blend {mode} 16-bit: {got.dtype} on {got.device}")
+            d = int((got.cpu().to(torch.int32)
+                     - want.to(torch.int32)).abs().max())
+            check(d == 0, f"blend {mode}@{opacity} 16-bit vs CPU: {d} LSB")
+            worst = max(worst, d)
+    return {"modes": len(blend.MODE_NAMES), "opacities": [1.0, 0.5],
+            "grid": [BLEND16_GRID, BLEND16_GRID], "max_lsb_vs_cpu": worst}
 
 
 def filter_graph_phase():
@@ -820,13 +1039,12 @@ def filter_graph_phase():
             del out
         del sources
         n, (h, w) = 3 * FILTER_CPU_FRAMES, LEG_CUT
-        fb_cut = fb.with_planes(
-            {k: v[:n, :h >> (k != "y"), :w >> (k != "y")].contiguous()
-             for k, v in fb.planes.items()}, width=w, height=h)
+        fb_cut = cut_batch(fb, n, h, w)
         stream = {}
         for spec in STREAM_FILTERS:
             on_cut = spec in STREAM_ON_CUT
-            kept, fps_mul = stream_filter(spec, fb_cut if on_cut else fb)
+            kept, fps_mul, _ = stream_filter(spec,
+                                             fb_cut if on_cut else fb)
             g = FilterGraph(spec)
             slow = spec in FILTER_SLOW
             ms, runs, host = event_ms(
@@ -840,6 +1058,7 @@ def filter_graph_phase():
                             "frames_out": kept, "fps_mul": fps_mul,
                             "max_lsb_vs_cpu": 0, "ms_per_batch": ms,
                             "runs_ms": runs, "host_ms": host}
+        part3 = filter_part3(fb, fb_cut, tmp)
         # the 10-bit leg: the same cut at 10 bits (x << 2 | 2): its first
         # 3 x FILTER_CPU_FRAMES frames at 960x544 (the CPU references
         # stay short)
@@ -854,10 +1073,23 @@ def filter_graph_phase():
         for spec in STREAM_FILTERS_10BIT:
             leg10[spec] = {"frames_out": stream_filter(spec, fb10)[0],
                            "max_lsb_vs_cpu": 0}
+        seconds10 = SecondInputs(tmp)
+        for spec in STREAM_FILTERS_3_10BIT:
+            leg10[spec] = {"frames_out": stream_filter(
+                seconds10.spec(spec, fb10), fb10)[0], "max_lsb_vs_cpu": 0}
+        try:
+            FilterGraph("framerate=fps=50").process(fb10)
+            raised = ""
+        except Exception as e:          # the 8-bit gate of the JAX filter
+            raised = str(e)
+        check("8-bit" in raised, f"framerate on yuv420p10: {raised!r}")
+        leg10["framerate=fps=50"] = {"raises": raised}
+        leg10["blend_plane_16bit"] = blend16_check()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("filter_graph", source=[FILTER_BATCH, H, W], scene_cut=FILTER_CUT,
          cpu_frames=FILTER_CPU_FRAMES, pure=pure, stream=stream,
+         temporal_structural=part3,
          yuv420p10={"source": [n, h, w], **leg10},
          phase_s=time.perf_counter() - t_phase)
 
@@ -964,22 +1196,30 @@ def abr_filtered(rungs, path, sizes, bare_fps):
 
 
 class GraphTap:
-    """A FilterGraph that keeps its first output batch: the common graph
-    of the HDR path, so that the phase can check the card's own output
-    of the timed run."""
+    """A FilterGraph that keeps its first output batch (and, with
+    keep_all, every output batch): the common graph of the HDR and IVTC
+    paths, so that the phase can check the card's own output of the timed
+    run."""
 
-    def __init__(self, graph):
-        self.graph, self.first = graph, None
+    def __init__(self, graph, keep_all: bool = False):
+        self.graph, self.first, self.keep_all = graph, None, keep_all
+        self.outs = []
 
     def process(self, fb, **kw):
         out, keep = self.graph.process(fb, **kw)
         if self.first is None:
             self.first = (out, keep)
+        if self.keep_all:
+            self.outs.append((out, keep))
         return out, keep
 
     @property
     def out_pts(self):
         return self.graph.out_pts
+
+    @property
+    def fps_mul(self):
+        return self.graph.fps_mul
 
 
 def abr_hdr(rungs, tmp, sizes, bare_fps):
@@ -1074,6 +1314,165 @@ def abr_hdr(rungs, tmp, sizes, bare_fps):
          common_ms_per_batch=common_ms, common_runs_ms=common_runs,
          common_host_ms=common_host, write_s=write_s,
          wall_s=wall, source_frames_per_s=fps,
+         bare_ladder_source_frames_per_s=bare_fps,
+         phase_s=time.perf_counter() - t_phase)
+    os.remove(path)
+    return counts
+
+
+def encoder_rate(src_fps: int, fps_mul):
+    """The rate run_session hands a rung's encoder: the source rate times
+    the graphs' fps_mul, kept rational (x1000)."""
+    from fractions import Fraction
+    if fps_mul == 1:
+        return Fraction(src_fps)
+    return Fraction(int(round(src_fps * fps_mul * 1000)), 1000)
+
+
+def write_telecined(src: str, path: str):
+    """The ABR source's first ABR_IVTC_FRAMES frames through the port's
+    telecine on the card, written as a 30/1 Y4M.  Returns the progressive
+    frames (on the card) and the frames written."""
+    from gmat_tpu_torch.av.ingest import decode_stream
+    from gmat_tpu_torch.av.rawvideo import Y4MWriter
+    from gmat_tpu_torch.filters.graph import FilterGraph
+    tel = FilterGraph(ABR_IVTC_TELECINE, 30.0)
+    progressive, written, n_read = [], 0, 0
+    wr = Y4MWriter(path, W, H, (30, 1))
+    try:
+        for fb, pts, valid in decode_stream(src, batch=ABR_BATCH):
+            take = min(int(valid), ABR_IVTC_FRAMES - n_read)
+            if take <= 0:
+                continue
+            part = fb.with_planes({k: v[:take].clone()
+                                   for k, v in fb.planes.items()})
+            progressive.append(part)
+            out, keep = tel.process(part, pts=pts[:take])
+            check(on_card(out), "abr_ivtc: telecine output off the card")
+            idx = torch.as_tensor(np.nonzero(keep)[0], device=out.device)
+            host = {k: v[idx].cpu().numpy() for k, v in out.planes.items()}
+            for j in range(len(idx)):
+                wr.write(*(host[k][j] for k in "yuv"))
+            written += len(idx)
+            n_read += take
+        check(not tel.flush(), "abr_ivtc: telecine flushed frames")
+    finally:
+        wr.close()
+    return progressive, written
+
+
+def abr_ivtc(rungs, src, tmp, sizes, bare_fps):
+    """The inverse-telecine ABR path once: the telecined Y4M ->
+    decode_stream -> metrans.filtered_step with ABR_IVTC_COMMON as the
+    common graph -> the int8 ladder -> rung planes on the host.  One
+    rungs_i8 launch per non-empty batch, none of rungs_bf16; each rung's
+    frame count and encoder rate (24/1) equal to the CPU run's; the
+    common output from ABR_IVTC_FADE_END on equal (0 LSB) to the
+    progressive source; the first batch's common output equal to the CPU
+    run's, and its rungs to the rung kernel's plain version on the card's
+    own common output (0 LSB)."""
+    from gmat_tpu_torch.apps import metrans
+    from gmat_tpu_torch.av.ingest import decode_stream
+    from gmat_tpu_torch.filters.graph import FilterGraph
+    t_phase = time.perf_counter()
+    path = os.path.join(tmp, "source_1080p_telecined.y4m")
+    t0 = time.perf_counter()
+    progressive, written = write_telecined(src, path)
+    write_s = time.perf_counter() - t0
+    check(written == ABR_IVTC_FRAMES * 5 // 4,
+          f"abr_ivtc: telecine wrote {written} frames")
+    tb = 1.0 / 30.0
+    common = GraphTap(FilterGraph(ABR_IVTC_COMMON, 30.0), keep_all=True)
+    kept = [0] * len(sizes)
+    first_rungs = None
+    zero_counts(rungs)
+    t0 = time.perf_counter()
+    steps = frames_in = 0
+    for fb, pts, valid in decode_stream(path, batch=ABR_BATCH):
+        outs = metrans.filtered_step(fb, pts, valid, sizes, common, None,
+                                     {"times": pts * tb}, tb)
+        host = []
+        for r, (rb, keep) in enumerate(outs):
+            if rb is None:
+                host.append(None)
+                continue
+            check(on_card(rb) and rb.format == "yuv420p"
+                  and (rb.width, rb.height) == sizes[r],
+                  f"abr_ivtc: rung {r} off the card or misshaped")
+            idx = torch.as_tensor(np.nonzero(keep)[0], device=rb.device)
+            host.append({k: rb.planes[k][idx].cpu() for k in "yuv"})
+            kept[r] += len(idx)
+        if common.outs[-1][0].batch:
+            steps += 1
+            if first_rungs is None:
+                first_rungs = host
+        frames_in += int(valid)
+    check(not common.graph.flush(), "abr_ivtc: the common graph flushed "
+          "frames (detelecine drops a buffered half frame, fade holds none)")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(rungs.LAUNCHES)
+    check(counts == {"rungs_i8": steps, "rungs_bf16": 0},
+          f"abr_ivtc launches {counts}, want {steps} rungs_i8")
+    # the same common graph on the CPU over the whole file: frame counts,
+    # encoder rate and the first batch's output
+    cg = FilterGraph(ABR_IVTC_COMMON, 30.0)
+    cpu_kept, cpu_first = 0, None
+    for fb, pts, valid in decode_stream(path, batch=ABR_BATCH, device="cpu"):
+        cfb, ckeep = cg.process(fb, pts=pts, valid=valid, times=pts * tb)
+        cpu_kept += int(np.count_nonzero(ckeep))
+        if cpu_first is None:
+            cpu_first = (cfb, ckeep)
+    rate = encoder_rate(30, common.fps_mul)
+    cpu_rate = encoder_rate(30, cg.fps_mul)
+    check(frames_in == written and kept == [cpu_kept] * len(sizes)
+          and rate == cpu_rate == 24,
+          f"abr_ivtc: {frames_in} frames in, {kept} out per rung at "
+          f"{rate}; the CPU run {cpu_kept} at {cpu_rate}")
+    card_first, card_keep = common.first
+    check(np.array_equal(card_keep, cpu_first[1]),
+          "abr_ivtc: first batch keep mask differs from the CPU")
+    err_first = planes_lsb(head_cpu(card_first, card_first.batch),
+                           cpu_first[0])
+    check(err_first == 0, f"abr_ivtc first batch vs CPU: {err_first} LSB")
+    # the round trip: what the fade leaves alone is the progressive source
+    card_out = {k: torch.cat([o.planes[k][torch.as_tensor(
+        np.nonzero(kp)[0], device=o.device)] for o, kp in common.outs
+        if o.batch]) for k in "yuv"}
+    source = {k: torch.cat([p.planes[k] for p in progressive])
+              for k in "yuv"}
+    n_out = card_out["y"].shape[0]
+    check(n_out == cpu_kept and n_out <= ABR_IVTC_FRAMES,
+          f"abr_ivtc: {n_out} common frames")
+    round_trip = max(int((card_out[k][ABR_IVTC_FADE_END:].to(torch.int32)
+                          - source[k][ABR_IVTC_FADE_END:n_out]
+                          .to(torch.int32)).abs().max()) for k in "yuv")
+    check(round_trip == 0, f"abr_ivtc: frames {ABR_IVTC_FADE_END}.."
+          f"{n_out - 1} are {round_trip} LSB from the progressive source")
+    # the first batch's rungs against the plain version on the card's own
+    # common output, copied to the host
+    cpu_common = head_cpu(card_first, card_first.batch)
+    plain = rungs.fused_rungs(*(cpu_common.planes[k] for k in "yuv"), sizes)
+    err_rungs = 0
+    for got_r, want_r in zip(first_rungs, plain):
+        for k, wp in zip("yuv", want_r):
+            check(tuple(got_r[k].shape) == tuple(wp.shape),
+                  f"abr_ivtc rung plane {tuple(got_r[k].shape)}")
+            err_rungs = max(err_rungs, rung_lsb(got_r[k], wp))
+    check(err_rungs == 0, f"abr_ivtc rungs vs plain: {err_rungs} LSB")
+    fps = frames_in / wall
+    emit("abr_ivtc", source=[written, H, W], progressive=ABR_IVTC_FRAMES,
+         batch=ABR_BATCH, telecine=ABR_IVTC_TELECINE, common=ABR_IVTC_COMMON,
+         rungs=[f"{ow}x{oh}" for ow, oh in sizes], launches=counts,
+         ladder_steps=steps, frames_out_per_rung=kept,
+         common_frames_per_batch=[o.batch for o, _k in common.outs],
+         cpu_frames_out=cpu_kept, encoder_rate=f"{rate.numerator}/"
+         f"{rate.denominator}", cpu_encoder_rate=f"{cpu_rate.numerator}/"
+         f"{cpu_rate.denominator}",
+         first_batch_max_lsb_vs_cpu=err_first,
+         round_trip_max_lsb_from_frame=[round_trip, ABR_IVTC_FADE_END],
+         rungs_max_lsb_vs_plain_on_card_common=err_rungs,
+         write_s=write_s, wall_s=wall, source_frames_per_s=fps,
          bare_ladder_source_frames_per_s=bare_fps,
          phase_s=time.perf_counter() - t_phase)
     os.remove(path)
@@ -1499,6 +1898,7 @@ def main() -> None:
         check(abr_i8["quant"] == "i8", "720p/360p should take int8 rows")
         filtered = abr_filtered(rungs, src, LADDER_1080_I8, abr_i8["fps"])
         hdr = abr_hdr(rungs, tmp, LADDER_1080_I8, abr_i8["fps"])
+        ivtc = abr_ivtc(rungs, src, tmp, LADDER_1080_I8, abr_i8["fps"])
         rung_src = [tuple(b[0].planes[k] for k in "yuv")
                     for b in abr["batches"][:2]]
         for b in abr["batches"] + abr_i8["batches"]:
@@ -1753,6 +2153,7 @@ def main() -> None:
                        max(abr_i8_plain, forced["i8"]))
     rungs_i8_row["launches_abr_filtered"] = filtered["rungs_i8"]
     rungs_i8_row["launches_abr_hdr"] = hdr["rungs_i8"]
+    rungs_i8_row["launches_abr_ivtc"] = ivtc["rungs_i8"]
     kernels = [
         row("ladder_i8", "ladder_i8", 455, "_ladder_kernel_i8",
             main_counts["ladder_i8"], err_k1),

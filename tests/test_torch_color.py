@@ -100,11 +100,13 @@ def _same_meta(got, want):
 
 def run_pair(spec, batches, lsb=0, fmt="yuv420p", eager=True,
              valid_last=None, stream_meta=None, colorspace="bt709",
-             rtol=1e-6, atol=1e-6, src_fps=30.0):
-    """The same batches (pts, times, keys per frame) through both graphs,
-    then flush: planes, keep masks, pts/times/keys and link state agree.
-    `eager` runs the JAX graph's pure segments op by op (no XLA fusion).
-    Returns the port's (batch, keep) outputs."""
+             rtol=1e-6, atol=1e-6, src_fps=30.0, ilace=None):
+    """The same batches (pts, times, keys per frame, and the interlace
+    flags `ilace[pts]` where given) through both graphs, then flush:
+    planes, keep masks, pts/times/keys (and the flushed interlace
+    flags) and link state agree.  `eager` runs the JAX graph's pure
+    segments op by op (no XLA fusion).  Returns the port's (batch, keep,
+    pts) outputs."""
     def jit_pure(self, idx, fn):
         return fn
     ctx = (mock.patch.object(jgraph.FilterGraph, "_jit_pure", jit_pure)
@@ -122,6 +124,8 @@ def run_pair(spec, batches, lsb=0, fmt="yuv420p", eager=True,
             start += n
             kw = dict(pts=pts, times=pts / src_fps,
                       keys=(pts % 5 == 0).astype(np.int64))
+            if ilace is not None:
+                kw["interlaced"] = np.asarray(ilace)[pts]
             if valid_last is not None and i == len(batches) - 1:
                 kw["valid"] = valid_last
             jfb, fb = _pair(planes, fmt, colorspace)
@@ -132,15 +136,15 @@ def run_pair(spec, batches, lsb=0, fmt="yuv420p", eager=True,
             _same_meta(g.out_pts, jg.out_pts)
             _same_meta(g.out_times, jg.out_times)
             _same_meta(g.out_keys, jg.out_keys)
-            outs.append((got, keep))
+            outs.append((got, keep, g.out_pts))
         jfl, fl = jg.flush(), g.flush()
         assert len(fl) == len(jfl)
         for (got, keep, meta), (want, jkeep, jmeta) in zip(fl, jfl):
             same_batch(got, want, lsb, rtol, atol)
             np.testing.assert_array_equal(keep, jkeep)
-            for key in ("pts", "times", "keys"):
+            for key in ("pts", "times", "keys", "interlaced"):
                 _same_meta(meta.get(key), jmeta.get(key))
-            outs.append((got, keep))
+            outs.append((got, keep, meta.get("pts")))
         assert g.link_state == jg.link_state
     return outs
 

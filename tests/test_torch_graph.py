@@ -170,7 +170,11 @@ def test_later_filters_name_their_roadmap_item(name):
 # the options a filter needs to build (the rest build with none)
 _BUILD_OPTS = {"crop": "=16:16", "crop_nvcv": "=16:16", "scale": "=32:16",
                "scale_cuda": "=32:16", "scale_npp": "=32:16",
-               "delogo": "=4:4:8:8"}
+               "delogo": "=4:4:8:8",
+               # the second-input filters: the file opens at the first
+               # batch, not at build time
+               "blend": "=video=bottom.y4m", "xfade": "=video=b.y4m",
+               "psnr": "=video=ref.y4m", "ssim": "=video=ref.y4m"}
 
 
 @pytest.mark.parametrize("name", sorted(jbuiltin.FILTERS))

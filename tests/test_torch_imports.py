@@ -39,7 +39,9 @@ def test_import_pulls_in_no_jax():
         "gmat_tpu_torch.core.transfer, gmat_tpu_torch.ops.tonemap, "
         "gmat_tpu_torch.ops.blur, gmat_tpu_torch.ops.hqdn3d, "
         "gmat_tpu_torch.ops.deband, gmat_tpu_torch.ops.noise, "
-        "gmat_tpu_torch.ops.vignette, gmat_tpu_torch.ops.delogo\n"
+        "gmat_tpu_torch.ops.vignette, gmat_tpu_torch.ops.delogo, "
+        "gmat_tpu_torch.ops.blend, gmat_tpu_torch.ops.metrics, "
+        "gmat_tpu_torch.filters.xfade\n"
         "bad = [m for m in sys.modules if m.startswith('jax') "
         "or m == 'gmat_tpu' or m.startswith('gmat_tpu.')]\n"
         "print(bad)\n"

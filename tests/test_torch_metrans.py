@@ -196,9 +196,14 @@ _FILTERED = {
         "zscale=tin=smpte2084:min=bt2020nc:pin=bt2020:t=linear:npl=100,"
         "format=gbrpf32le,zscale=p=bt709,tonemap=tonemap=hable:desat=0,"
         "zscale=t=bt709:m=bt709:r=tv,format=yuv420p", ("", "hflip")),
+    # inverse telecine: a 3:2-pulldown 30/1 source back to 24/1 with a
+    # fade in, as chip_smoke.py's abr_ivtc phase runs it
+    "ivtc": ("detelecine=first_field=top:pattern=23,fade=in:0:12",
+             ("", "hflip")),
 }
 # the key select needs an encoded source's keyframe flags
-_SOURCES = {"rung_fps_key_select": "mp4", "hdr10_to_sdr": "y4m10"}
+_SOURCES = {"rung_fps_key_select": "mp4", "hdr10_to_sdr": "y4m10",
+            "ivtc": "telecined"}
 # every case hands the encoders equal frames but the HDR chain's: its f32
 # pow/exp/log (the PQ EOTF, the BT.709 OETF) differ by an ulp between
 # XLA's and PyTorch's CPU implementations, which moves a rare sample by
@@ -223,6 +228,29 @@ def make_pq_y4m(path, n=NF):
     wr.close()
 
 
+def make_telecined_y4m(path, n=24):
+    """n progressive frames (gradient plus noise) through the port's
+    telecine=first_field=top:pattern=23 on the CPU, written as a 30/1
+    Y4M of n * 5 / 4 frames."""
+    from gmat_tpu_torch.filters.graph import FilterGraph
+    rng = np.random.default_rng(19)
+    ramp = np.add.outer(np.arange(H), np.arange(W)).astype(np.float32)
+    planes = {"y": np.stack([np.clip(ramp + 3 * i + rng.normal(0, 12, (H, W)),
+                                     0, 255) for i in range(n)]),
+              "u": rng.integers(60, 200, (n, H // 2, W // 2)),
+              "v": rng.integers(60, 200, (n, H // 2, W // 2))}
+    fb = FrameBatch.from_numpy({k: v.astype(np.uint8)
+                                for k, v in planes.items()},
+                               "yuv420p", W, H, device="cpu")
+    out, keep = FilterGraph("telecine=first_field=top:pattern=23").process(
+        fb, pts=np.arange(n))
+    wr = rawvideo.Y4MWriter(path, W, H, (30, 1))
+    for i in np.nonzero(keep)[0]:
+        wr.write(*(out.planes[k][i].numpy() for k in "yuv"))
+    wr.close()
+    return int(keep.sum())
+
+
 @pytest.mark.parametrize("case", sorted(_FILTERED))
 def test_filtered_session_matches_jax(monkeypatch, tmp_path, y4m, case):
     """VideoFilterDesc and rung filters, both packages on the CPU: every
@@ -232,6 +260,9 @@ def test_filtered_session_matches_jax(monkeypatch, tmp_path, y4m, case):
     if _SOURCES.get(case) == "mp4":
         src = str(tmp_path / "clip.mp4")
         make_clip(src)
+    elif _SOURCES.get(case) == "telecined":
+        src = str(tmp_path / "telecined.y4m")
+        assert make_telecined_y4m(src) == 30
     elif _SOURCES.get(case) == "y4m10":
         src = str(tmp_path / "pq.y4m")
         make_pq_y4m(src)
@@ -265,6 +296,12 @@ def test_filtered_session_matches_jax(monkeypatch, tmp_path, y4m, case):
     assert res["frames_in"] == jres["frames_in"]
     assert res["frames_out"] == jres["frames_out"] > 0
     assert rates_port == rates_jax
+    if case == "ivtc":
+        # detelecine's fps_mul 0.8 takes the 30/1 source to 24/1, and the
+        # 30 telecined frames back to 24 progressive ones per rung
+        from fractions import Fraction
+        assert {Fraction(*r) for r in rates_port.values()} == {24}
+        assert res["frames_in"] == 30 and res["frames_out"] == 2 * 24
     assert sorted(seen_port) == sorted(seen_jax)
     lsb = _LSB.get(case, 0)
     differ = total = 0
