@@ -7,17 +7,32 @@ Builds the kernels (gmat_tpu_torch/csrc/ladder.cu and rungs.cu) with
 nvcc, runs the port's main paths at full size -- `preprocess_nchw` on a
 64 x 1080p yuv420p batch -> (64, 3, 224, 224) f32; the wire-format lane,
 the same batch as NV12 and a 10-bit one as P010 -> the same output; the
-filter graph on a 32 x 1080p batch; and the ABR ladder: a 96-frame 1080p
+filter graph on a 32 x 1080p batch; in-graph inference, 32 x 1080p ->
+`preprocess_nchw` -> 224^2 -> the bundled ESPCN x2 -> 448^2 and the other
+models through FilterGraph; and the ABR ladder: a 96-frame 1080p
 Y4M file -> `decode_stream` -> `metrans.ladder_step` -> rung planes on
 the host, whose batches are also scene-scored, the same file through the
 filtered ABR path (common graph -> ladder -> rung graphs), a 10-bit
-PQ file through the HDR10 -> SDR chain as the common graph, and a
-telecined file through inverse telecine as the common graph -- and holds
-every kernel against its plain PyTorch version on the card:
+PQ file through the HDR10 -> SDR chain as the common graph, a
+telecined file through inverse telecine as the common graph, and its
+first batch through a DnCNN as the common graph and through the JPEG
+still codec -- and holds every kernel against its plain PyTorch version
+on the card:
 
   device           card name, compute capability, power limit, kernel build
   main_path        K1 (ladder_i8) through preprocess_nchw, quality gate vs
                    the exact path, a crop + smooth + flip case
+  infer_pipeline   BASELINE config #4: 32 x 1080p -> preprocess_nchw (one
+                   ladder_i8 launch) -> 224^2 -> InferFilter("sr2x"), the
+                   bundled espcn_x2 -> 448^2, in bf16 and fp32: fp32 within
+                   rtol 1e-4 / atol 1e-5 of the CPU on 4 frames, bf16 within
+                   the JAX bf16 bound (8 LSB max, 1 mean) of fp32; ladder,
+                   model and chain ms, frames/s, counted FLOPs and their
+                   share of the card's peak
+  infer_models     sr2x h128, sr3x, classify (224^2), pose (120^2), luma
+                   sr2x (540x960), luma and 3-channel DnCNN (1080p) through
+                   FilterGraph, bf16 and fp32, against the CPU on 2 frames
+                   (the 1080p ones cut to 544x960), timed on 32 frames
   ladder_bf16      K2 (ladder_bf16): use_kernel="bf16", yuv420p10, yuv444p
   ladder_wide      K3 (ladder_i8 at 8K) and a 5760x3240 frame
   ladder_ragged    ladder_i8 and ladder_bf16 on 4 x 998x562 -> 225x223: no
@@ -38,7 +53,8 @@ every kernel against its plain PyTorch version on the card:
                    resamplers and conversions), ms per 32 x 1080p batch;
                    then a 10-bit leg (12 x 960x544 yuv420p10: u16 planes
                    on the card); the temporal and structural filters
-                   (separatefields ... psnr/ssim, STREAM_FILTERS_3) the
+                   (separatefields ... psnr/ssim, overlay;
+                   STREAM_FILTERS_3) the
                    same way, some checked on a cut, each timed at 32 x
                    1080p (the per-pixel expressions on a cut); every
                    blend mode on 16-bit planes against the CPU
@@ -67,6 +83,18 @@ every kernel against its plain PyTorch version on the card:
                    LSB from the progressive source, the first batch 0
                    LSB from the CPU, its rungs 0 LSB from the plain
                    version; source frames/s beside abr_ladder_i8's
+  abr_enhance      the ABR source's first batch through the bundled
+                   DnCNN (bf16) as the common graph, K4-int8 on 720p/360p:
+                   one rungs_i8 launch, the common graph within the bf16
+                   bound of the CPU on a 2 x 544x960 cut, the rungs 0 LSB
+                   from the plain version; source frames/s
+  jpeg_still       BASELINE config #5: the ABR source's first batch through
+                   jpeg_tpu.encode_batch at q=90 (baseline, optimize,
+                   progressive, restart_mcus=8) and decode_batch: the
+                   coefficients, bytes and decoded planes against the CPU
+                   on 4 frames, the smooth round trip < 3 LSB mean; the
+                   coefficient and pixel programs' ms against their byte
+                   bound, host entropy ms, images/s
   rungs_bf16       bf16 rows forced on the first batch, both ladders
   rungs_i8_forced  int8 rows forced on the 720p/540p/360p ladder
   rungs_wide       K5 (rungs_i8 at 8 x 4K) and a nearest-neighbour ladder
@@ -79,6 +107,9 @@ every kernel against its plain PyTorch version on the card:
                    filters, where libavcodec exists
   smart_decode     FrameExtractor, FrameSelect and extract_to_torch on a
                    small libx264 clip, where libavcodec exists
+  stills_av        overlay=path= with a .jpg (av/jpeg.py) and gmat-extract's
+                   JPEG output on the card against the CPU, where
+                   libavcodec exists
   timing           CUDA-event medians: kernel, plain version, library call,
                    separate-op path; for the ladder, wire and rung kernels
                    also the wrapper's device and host time and the ptxas
@@ -106,6 +137,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -255,6 +287,9 @@ STREAM_FILTERS_10BIT = ("yadif=1", "bwdif=send_frame",
 # blend's interpolate); the psnr/ssim values within METRIC_RTOL of the
 # CPU's
 EXPR_CUT, EXPR_BATCH, SECOND_FRAMES, METRIC_RTOL = (36, 64), 8, 36, 1e-5
+# "{o}": overlay's second input, an OVERLAY_FRAMES-frame Y4M of
+# OVERLAY_SIZE (h, w) from write_y4m_source with seed SEED + 19
+OVERLAY_FRAMES, OVERLAY_SIZE = 6, (270, 480)
 STREAM_FILTERS_3 = (
     ("separatefields", 0, "full"), ("weave=bottom", 0, "full"),
     ("doubleweave", 0, "full"),
@@ -284,7 +319,12 @@ STREAM_FILTERS_3 = (
     ("format=yuv444p,xfade=transition=custom:duration=0.1:offset=0:"
      "expr=A*P+B*(1-P):video={b}", 0, "expr"),
     ("psnr=video={b}:stats_file={tmp}/{dev}_psnr.log", 0, "cut"),
-    ("ssim=video={b}:stats_file={tmp}/{dev}_ssim.log", 0, "cut"))
+    ("ssim=video={b}:stats_file={tmp}/{dev}_ssim.log", 0, "cut"),
+    # overlay: a position expression sliding in from a negative odd x,
+    # and eof_action=pass once the OVERLAY_FRAMES-frame clip ends
+    ("overlay=video={o}:x=-301+n*37:y=main_h-overlay_h-n*5:"
+     "eof_action=pass", 0, "full"),
+    ("overlay_cuda=video={o}:x=100:y=50", 0, "full"))
 # timed by one call, without a warm-up: host loops over frames (zoompan's
 # per-output taps, xfade's numpy transitions, every second input's
 # decode and upload)
@@ -323,6 +363,48 @@ ABR_HDR_COMMON = (
 ABR_IVTC_FRAMES, ABR_IVTC_FADE_END = 64, 13
 ABR_IVTC_TELECINE = "telecine=first_field=top:pattern=23"
 ABR_IVTC_COMMON = "detelecine=first_field=top:pattern=23,fade=in:0:12"
+# in-graph inference (BASELINE config #4, perf.py:357-394): a 32 x 1080p
+# yuv420p batch -> preprocess_nchw (K1) -> 224^2 -> the bundled ESPCN x2
+# -> 448^2, in bf16 and fp32.  fp32 on the card within INFER_RTOL /
+# INFER_ATOL of the port's CPU run on INFER_CPU_FRAMES frames (f32 sums in
+# another order); bf16 within the JAX package's bf16-vs-fp32 bound
+# (tests/test_filters.py:135-144): BF16_MAX_LSB max and BF16_MEAN_LSB mean
+# u8 LSBs from fp32
+INFER_BATCH, INFER_CPU_FRAMES, INFER_RTOL, INFER_ATOL = 32, 4, 1e-4, 1e-5
+BF16_MAX_LSB, BF16_MEAN_LSB = 8.0, 1.0
+# float32 without the tensor cores (the fp32 lane runs no TF32)
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+# the other models through FilterGraph: (spec, source); each checked
+# against the CPU on INFER_MODEL_CPU_FRAMES frames of its source (the
+# 1080p sources cut to INFER_CUT), timed on the whole source.  The
+# random-init models (luma sr2x, luma denoise, pose) draw from the port's
+# generator on the host, so the card and the CPU run the same weights
+INFER_MODEL_CPU_FRAMES, INFER_CUT = 2, (544, 960)
+INFER_MODELS = (
+    ("infer=sr2x:hidden=128", "rgb224"), ("infer=sr3x", "rgb224"),
+    ("infer=sr2x:luma_only=1", "yuv540"),
+    ("infer=denoise:luma_only=1", "yuv1080"),
+    ("infer=denoise", "yuv1080"),
+    ("infer=classify", "rgb224"), ("infer=pose", "rgb120"))
+# the enhanced ABR path: the first 32 frames of the ABR source through the
+# bundled 3-channel DnCNN (bf16) and back to yuv420p as the common graph,
+# onto the int8 ladder; the common graph held to the CPU on
+# ABR_ENHANCE_CPU_FRAMES frames cut to INFER_CUT
+ABR_ENHANCE_COMMON = "infer=denoise,format=yuv420p"
+ABR_ENHANCE_CPU_FRAMES = 2
+# the JPEG still lane (BASELINE config #5, the nvjpeg analog): the first
+# 32 frames of the ABR source at JPEG_Q in each JPEG_VARIANTS, the CPU
+# reference on JPEG_CPU_FRAMES of them: coefficients equal (a flipped
+# rounding tie may move one by 1: at most JPEG_COEF_SHARE of them), bytes
+# equal wherever the coefficients are, decoded planes within 1 LSB.  The
+# round trip is held to the JAX bound (mean < JPEG_RT_MEAN LSB,
+# tests/test_jpeg_tpu.py test_jpeg_self_roundtrip) on the JAX test's kind
+# of content, smooth gradients with little noise (filter_frames); the
+# source's +-24 uniform noise is reported, not held to it
+JPEG_Q, JPEG_CPU_FRAMES, JPEG_COEF_SHARE, JPEG_RT_MEAN = 90, 4, 1e-5, 3.0
+JPEG_VARIANTS = {"baseline": {}, "optimize": {"optimize": True},
+                 "progressive": {"progressive": True},
+                 "restart_8": {"restart_mcus": 8}}
 AV_LIBS = ("avformat", "avcodec", "avutil", "swscale", "swresample")
 # smart decode clip: test_extractor.py's, 60 frames with a cut at 30
 SMART_SIZE, SMART_FRAMES, SMART_CUT = (320, 240), 60, 30
@@ -904,8 +986,15 @@ class SecondInputs:
                              SEED + 13)
             self.write_s += time.perf_counter() - t0
             self.paths[key] = path
+        if "{o}" in spec and "overlay" not in self.paths:
+            oh, ow = OVERLAY_SIZE
+            path = os.path.join(self.tmp, f"overlay_{ow}x{oh}.y4m")
+            t0 = time.perf_counter()
+            write_y4m_source(path, OVERLAY_FRAMES, oh, ow, SEED + 19)
+            self.write_s += time.perf_counter() - t0
+            self.paths["overlay"] = path
         return spec.replace("{b}", self.paths.get(key, "")).replace(
-            "{tmp}", self.tmp)
+            "{o}", self.paths.get("overlay", "")).replace("{tmp}", self.tmp)
 
 
 def fresh_run(spec: str, fb) -> int:
@@ -1644,11 +1733,479 @@ def smart_decode(tmp, device="cuda"):
     return sel
 
 
+def model_flops(filt, n: int, h: int, w: int) -> int:
+    """FLOPs (2 per multiply-add) of one InferFilter call on n frames of
+    an h x w network input, counted from its param shapes: stride-1
+    "same" convs for sr and denoise; stride-2 "SAME" convs, then the
+    head, for pose and classify."""
+    p = filt.params
+    if "w1" in p:
+        weights, strided, head = [p["w1"], p["w2"], p["w3"]], False, None
+    else:
+        weights = [l["w"] for l in p.get("layers", p.get("convs"))]
+        strided, head = "head_w" in p, p.get("head_w")
+    total = 0
+    for wt in weights:
+        if strided:
+            h, w = -(-h // 2), -(-w // 2)
+        cout, cin, kh, kw = wt.shape
+        total += 2 * n * h * w * cout * cin * kh * kw
+    if head is not None:
+        total += 2 * n * head.shape[0] * head.shape[1]
+    return total
+
+
+def lsb_stats(got, want):
+    """(max, mean) |got - want| over two batches' planes in u8 LSBs
+    (float planes are RGB in [0, 1])."""
+    check(sorted(got.planes) == sorted(want.planes)
+          and (got.format, got.width, got.height)
+          == (want.format, want.width, want.height),
+          f"{got.format} {got.width}x{got.height} vs {want.format} "
+          f"{want.width}x{want.height}")
+    worst, total, count = 0.0, 0.0, 0
+    for k, b in want.planes.items():
+        d = (got.planes[k].cpu().double() - b.double()).abs()
+        if b.is_floating_point():
+            d = d * 255.0
+        worst = max(worst, float(d.max()))
+        total += float(d.sum())
+        count += d.numel()
+    return worst, total / count
+
+
+def rel_excess(got: torch.Tensor, want: torch.Tensor, rtol: float,
+               atol: float) -> float:
+    """Largest |got - want| / (atol + rtol |want|): <= 1 is within."""
+    got, want = got.cpu().double(), want.cpu().double()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def infer_pipeline(fused, ladder, pair):
+    """BASELINE config #4 once per precision: a 32 x 1080p yuv420p batch
+    -> preprocess_nchw (one ladder_i8 launch) -> (32, 3, 224, 224) ->
+    InferFilter("sr2x") with the bundled espcn_x2 -> (32, 3, 448, 448).
+    fp32 held to the port's CPU run on INFER_CPU_FRAMES frames of the
+    same 224^2 input, bf16 to fp32 within the JAX bf16 bound; then the
+    ladder alone, the model alone and the chain timed (CUDA events), with
+    the model's counted FLOPs against the card's peak for its precision.
+    Returns the launch count and the fp32 224^2 input."""
+    from gmat_tpu_torch.filters.infer import InferFilter
+    from gmat_tpu_torch.ops import csc
+    t_phase = time.perf_counter()
+    filters = {p: InferFilter("sr2x", precision=p) for p in ("bf16", "fp32")}
+
+    def chain(fb, prec):
+        x = fused.preprocess_nchw(fb, OUT, OUT)
+        return x, filters[prec](csc.from_nchw(x, "rgbpf32"))
+
+    runs, launches = {}, 0
+    for prec in ("bf16", "fp32"):
+        zero_counts(ladder)
+        x, out = chain(pair[0], prec)
+        torch.cuda.synchronize()
+        counts = dict(ladder.LAUNCHES)
+        check(counts == want_counts(ladder, ladder_i8=1),
+              f"infer_pipeline {prec} launches {counts}")
+        launches += counts["ladder_i8"]
+        rgb = out.planes["rgb"]
+        check(out.format == "rgbpf32" and on_card(out)
+              and tuple(rgb.shape) == (INFER_BATCH, 2 * OUT, 2 * OUT, 3)
+              and bool(torch.isfinite(rgb).all()),
+              f"infer_pipeline {prec}: {out.format} {tuple(rgb.shape)}")
+        runs[prec] = (x, rgb)
+    x, f32 = runs["fp32"]
+    n = INFER_CPU_FRAMES
+    x_cpu = csc.from_nchw(x[:n].cpu(), "rgbpf32")
+    cpu = {p: filters[p](x_cpu).planes["rgb"] for p in ("bf16", "fp32")}
+    excess = rel_excess(f32[:n], cpu["fp32"], INFER_RTOL, INFER_ATOL)
+    check(excess <= 1.0, f"infer_pipeline fp32 vs CPU: {excess} x the "
+          f"rtol {INFER_RTOL} / atol {INFER_ATOL} bound")
+    d = (runs["bf16"][1] - f32).abs() * 255.0
+    bf_max, bf_mean = float(d.max()), float(d.mean())
+    check(bf_max <= BF16_MAX_LSB and bf_mean <= BF16_MEAN_LSB,
+          f"infer_pipeline bf16 vs fp32: max {bf_max}, mean {bf_mean} LSB")
+    dc = (runs["bf16"][1][:n].cpu() - cpu["bf16"]).abs() * 255.0
+    del runs, d, f32
+    # timing: the ladder alone, the model alone, the chain
+    ladder_ms, ladder_runs, ladder_host = event_ms(
+        lambda i: fused.preprocess_nchw(pair[i % 2], OUT, OUT))
+    xs = [csc.from_nchw(fused.preprocess_nchw(fb, OUT, OUT), "rgbpf32")
+          for fb in pair]
+    flops = model_flops(filters["fp32"], INFER_BATCH, OUT, OUT)
+    timing = {}
+    for prec in ("bf16", "fp32"):
+        model_ms, model_runs, model_host = event_ms(
+            lambda i: filters[prec](xs[i % 2]), calls=3, reps=5)
+        ms, chain_runs, host = event_ms(
+            lambda i: chain(pair[i % 2], prec), calls=3, reps=5)
+        timing[prec] = {
+            "chain_ms_per_batch": ms, "chain_runs_ms": chain_runs,
+            "chain_host_ms": host, "frames_per_s": INFER_BATCH / ms * 1e3,
+            "model_ms_per_batch": model_ms, "model_runs_ms": model_runs,
+            "model_host_ms": model_host,
+            "model_tflop_per_s": flops / model_ms / 1e9,
+            "model_peak_share": flops / (model_ms * 1e-3) / PEAK_FLOPS[prec],
+            "peak_flop_per_s": PEAK_FLOPS[prec]}
+    emit("infer_pipeline", source=[INFER_BATCH, H, W], net_input=[OUT, OUT],
+         output_nchw=[INFER_BATCH, 3, 2 * OUT, 2 * OUT], model="sr2x",
+         weights="espcn_x2.npz", launches_ladder_i8=launches,
+         fp32_vs_cpu_bound_excess=excess, cpu_frames=n,
+         bf16_vs_fp32_max_lsb=bf_max, bf16_vs_fp32_mean_lsb=bf_mean,
+         bf16_vs_cpu_bf16_max_lsb=float(dc.max()),
+         bf16_vs_cpu_bf16_mean_lsb=float(dc.mean()),
+         flops_per_batch=flops, flops_per_frame=flops // INFER_BATCH,
+         ladder_ms_per_batch=ladder_ms, ladder_runs_ms=ladder_runs,
+         ladder_host_ms=ladder_host, timing=timing,
+         phase_s=time.perf_counter() - t_phase)
+    return launches, x
+
+
+def _head(fb, n: int):
+    return fb.with_planes({k: v[:n] for k, v in fb.planes.items()})
+
+
+def infer_models(rgb224):
+    """Every other model through FilterGraph, bf16 and fp32: sr2x h128,
+    sr3x, classify (on the pipeline's 224^2 input), pose (120^2), luma
+    sr2x (32 x 540x960), luma and 3-channel DnCNN (32 x 1080p).  Each is
+    checked on INFER_MODEL_CPU_FRAMES frames (the 1080p sources cut to
+    INFER_CUT) against the port's CPU fp32 run with the same weights:
+    fp32 float outputs and last_output within INFER_RTOL / INFER_ATOL,
+    fp32 u8 planes within 1 LSB (a rounding edge), bf16 within the JAX
+    bf16 bound; then timed on the whole source."""
+    from gmat_tpu_torch.filters.graph import FilterGraph
+    from gmat_tpu_torch.ops import csc, fused
+    t_phase = time.perf_counter()
+    yuv1080 = filter_frames(INFER_BATCH, SEED + 17)
+    sources = {
+        "rgb224": csc.from_nchw(rgb224, "rgbpf32"),
+        "rgb120": csc.from_nchw(fused.preprocess_nchw(yuv1080, 120, 120),
+                                "rgbpf32"),
+        "yuv540": cut_batch(yuv1080, INFER_BATCH, 540, 960),
+        "yuv1080": yuv1080}
+    n = INFER_MODEL_CPU_FRAMES
+    out = {}
+    for spec, src in INFER_MODELS:
+        fb = sources[src]
+        probe = (cut_batch(fb, n, *INFER_CUT) if src == "yuv1080"
+                 else _head(fb, n))
+        probe_cpu = head_cpu(probe, n)
+        res, cpu32 = {}, None
+        for prec in ("fp32", "bf16"):
+            pspec = spec if prec == "bf16" else spec + ":precision=fp32"
+            g = FilterGraph(pspec)
+            got, _ = g.process(probe)
+            torch.cuda.synchronize()
+            check(on_card(got), f"{pspec}: output off the card")
+            vec = g.filters[-1].last_output
+            if prec == "fp32":      # the CPU reference: fp32 only
+                gc = FilterGraph(pspec)
+                cpu32 = (gc.process(probe_cpu)[0], gc.filters[-1].last_output)
+            want, vec_cpu = cpu32
+            entry = {}
+            if vec is not None:
+                vec, vec_cpu = torch.as_tensor(vec), torch.as_tensor(vec_cpu)
+                check(tuple(vec.shape) == tuple(vec_cpu.shape)
+                      and bool(torch.isfinite(vec).all()),
+                      f"{pspec}: last_output {tuple(vec.shape)}")
+                entry["last_output_vs_cpu_fp32_excess"] = rel_excess(
+                    vec, vec_cpu, INFER_RTOL, INFER_ATOL)
+                entry["last_output_vs_cpu_fp32_max_abs"] = float(
+                    (vec - vec_cpu).abs().max())
+                if prec == "fp32":
+                    check(entry["last_output_vs_cpu_fp32_excess"] <= 1.0,
+                          f"{pspec} last_output vs CPU: "
+                          f"{entry['last_output_vs_cpu_fp32_excess']}")
+            mx, mean = lsb_stats(got, want)
+            entry.update(max_lsb_vs_cpu_fp32=mx, mean_lsb_vs_cpu_fp32=mean,
+                         out=f"{got.format} {got.width}x{got.height}")
+            if prec == "bf16":
+                check(mx <= BF16_MAX_LSB and mean <= BF16_MEAN_LSB,
+                      f"{pspec} vs CPU fp32: max {mx}, mean {mean} LSB")
+            elif got.fmt.is_float:
+                entry["vs_cpu_fp32_excess"] = max(
+                    rel_excess(got.planes[k], want.planes[k], INFER_RTOL,
+                               INFER_ATOL) for k in want.planes)
+                check(entry["vs_cpu_fp32_excess"] <= 1.0,
+                      f"{pspec} vs CPU: {entry['vs_cpu_fp32_excess']}")
+            else:
+                check(mx <= 1, f"{pspec} vs CPU: {mx} LSB")
+            del got
+            tg = FilterGraph(pspec)
+            ms, runs, host = event_ms(lambda i: tg.process(fb), calls=1,
+                                      reps=3, warm=1)
+            flops = model_flops(tg.filters[-1], fb.batch, fb.height,
+                                fb.width)
+            entry.update(ms_per_batch=ms, runs_ms=runs, host_ms=host,
+                         frames_per_s=fb.batch / ms * 1e3,
+                         flops_per_batch=flops,
+                         tflop_per_s=flops / ms / 1e9,
+                         peak_share=flops / (ms * 1e-3) / PEAK_FLOPS[prec])
+            res[prec] = entry
+        out[spec] = {"source": [fb.batch, fb.height, fb.width, fb.format],
+                     "checked_on": [n, probe.height, probe.width], **res}
+    emit("infer_models", models=out, phase_s=time.perf_counter() - t_phase)
+
+
+def abr_enhance(rungs, src, sizes, bare_fps):
+    """The enhanced ABR path once: the ABR source's first batch (32 x
+    1080p) -> decode_stream -> metrans.filtered_step with
+    ABR_ENHANCE_COMMON (the bundled DnCNN in bf16, back to yuv420p) as
+    the common graph -> the int8 ladder -> rung planes on the host.  One
+    rungs_i8 launch; the common graph on ABR_ENHANCE_CPU_FRAMES frames
+    cut to INFER_CUT within the JAX bf16 bound of the CPU's fp32 run (and
+    its difference from the CPU's bf16 run reported); the rungs 0 LSB from
+    the rung kernel's plain version on the card's own common output."""
+    from gmat_tpu_torch.apps import metrans
+    from gmat_tpu_torch.av.ingest import decode_stream
+    from gmat_tpu_torch.filters.graph import FilterGraph
+    t_phase = time.perf_counter()
+    tb = 1.0 / 30.0
+    common = GraphTap(FilterGraph(ABR_ENHANCE_COMMON, 30.0))
+    zero_counts(rungs)
+    t0 = time.perf_counter()
+    stream = decode_stream(src, batch=ABR_BATCH)
+    try:
+        fb, pts, valid = next(iter(stream))
+        first_src = fb.with_planes({k: v.clone()
+                                    for k, v in fb.planes.items()})
+        outs = metrans.filtered_step(fb, pts, valid, sizes, common, None,
+                                     {"times": pts * tb}, tb)
+        host = []
+        for r, (rb, keep) in enumerate(outs):
+            check(rb is not None and on_card(rb) and rb.format == "yuv420p"
+                  and (rb.width, rb.height) == sizes[r] and keep.all(),
+                  f"abr_enhance: rung {r} missing, off the card or "
+                  "misshaped")
+            host.append({k: rb.planes[k].cpu() for k in "yuv"})
+    finally:
+        stream.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(rungs.LAUNCHES)
+    check(counts == {"rungs_i8": 1, "rungs_bf16": 0},
+          f"abr_enhance launches {counts}, want 1 rungs_i8")
+    check(int(valid) == ABR_BATCH, f"abr_enhance: {valid} frames")
+    # the common graph on a cut, card against the CPU
+    n = ABR_ENHANCE_CPU_FRAMES
+    cut = cut_batch(first_src, n, *INFER_CUT)
+    card, _ = FilterGraph(ABR_ENHANCE_COMMON).process(cut)
+    cpu16, _ = FilterGraph(ABR_ENHANCE_COMMON).process(head_cpu(cut, n))
+    fp32 = ABR_ENHANCE_COMMON.replace("infer=denoise",
+                                      "infer=denoise:precision=fp32")
+    cpu32, _ = FilterGraph(fp32).process(head_cpu(cut, n))
+    mx16, mean16 = lsb_stats(card, cpu16)
+    mx32, mean32 = lsb_stats(card, cpu32)
+    check(mx32 <= BF16_MAX_LSB and mean32 <= BF16_MEAN_LSB,
+          f"abr_enhance common graph vs CPU fp32: max {mx32}, mean "
+          f"{mean32} LSB")
+    # the rungs against the plain version on the card's own common output
+    card_common, _ = common.first
+    cpu_common = head_cpu(card_common, card_common.batch)
+    plain = rungs.fused_rungs(*(cpu_common.planes[k] for k in "yuv"), sizes)
+    err_rungs = 0
+    for got_r, want_r in zip(host, plain):
+        for k, wp in zip("yuv", want_r):
+            check(tuple(got_r[k].shape) == tuple(wp.shape),
+                  f"abr_enhance rung plane {tuple(got_r[k].shape)}")
+            err_rungs = max(err_rungs, rung_lsb(got_r[k], wp))
+    check(err_rungs == 0, f"abr_enhance rungs vs plain: {err_rungs} LSB")
+    timed = FilterGraph(ABR_ENHANCE_COMMON, 30.0)
+    common_ms, common_runs, common_host = event_ms(
+        lambda i: timed.process(first_src), calls=1, reps=3)
+    fps = int(valid) / wall
+    emit("abr_enhance", source=[ABR_BATCH, H, W], batch=ABR_BATCH,
+         common=ABR_ENHANCE_COMMON, rungs=[f"{ow}x{oh}" for ow, oh in sizes],
+         launches=counts, common_checked_on=[n, *INFER_CUT],
+         common_vs_cpu_fp32_max_lsb=mx32, common_vs_cpu_fp32_mean_lsb=mean32,
+         common_vs_cpu_bf16_max_lsb=mx16, common_vs_cpu_bf16_mean_lsb=mean16,
+         rungs_max_lsb_vs_plain_on_card_common=err_rungs,
+         common_ms_per_batch=common_ms, common_runs_ms=common_runs,
+         common_host_ms=common_host, wall_s=wall,
+         source_frames_per_s=fps, bare_ladder_source_frames_per_s=bare_fps,
+         phase_s=time.perf_counter() - t_phase)
+    return counts
+
+
+def round_trip_mean(fb, out) -> float:
+    """Largest per-plane mean |decoded - source| in LSBs."""
+    return max(float((out.planes[k].to(torch.int32)
+                      - fb.planes[k].to(torch.int32)).abs().float().mean())
+               for k in "yuv")
+
+
+def jpeg_still(src):
+    """BASELINE config #5 (the nvjpeg analog): the ABR source's first 32
+    frames -> jpeg_tpu.encode_batch at JPEG_Q in each JPEG_VARIANTS ->
+    decode_batch on the card.  Against the port's CPU run on
+    JPEG_CPU_FRAMES frames: int16 coefficients equal (at most
+    JPEG_COEF_SHARE of them 1 apart), bytes equal wherever the
+    coefficients are, every variant's decoded planes within 1 LSB of the
+    CPU's decode; the round trip of
+    smooth content within the JAX mean bound.  Timed: the coefficient
+    program and the pixel program per batch (CUDA events) against their
+    byte bounds, the host entropy coding, encode and decode images/s."""
+    from gmat_tpu_torch.av import jpeg_tpu
+    from gmat_tpu_torch.av.ingest import decode_stream
+    from gmat_tpu_torch.core.frame import to_device
+    t_phase = time.perf_counter()
+    stream = decode_stream(src, batch=ABR_BATCH)
+    try:
+        fb, _pts, _valid = next(iter(stream))
+        fb = fb.with_planes({k: v.clone() for k, v in fb.planes.items()})
+    finally:
+        stream.close()
+    n = JPEG_CPU_FRAMES
+    cpu_fb = head_cpu(fb, n)
+    # the coefficients, card against CPU
+    subsamp, qy, qc, coefs = jpeg_tpu.coefficients(fb, JPEG_Q)
+    _, _, _, coefs_cpu = jpeg_tpu.coefficients(cpu_fb, JPEG_Q)
+    differ = total = worst = 0
+    frame_equal = np.ones(n, bool)
+    for c, cc in zip(coefs, coefs_cpu):
+        check(c.device.type == "cuda" and c.dtype == torch.int16,
+              f"jpeg_still coefficients {c.dtype} on {c.device}")
+        d = (c[:n].cpu().to(torch.int32) - cc.to(torch.int32)).abs()
+        differ += int(d.count_nonzero())
+        total += d.numel()
+        worst = max(worst, int(d.max()))
+        frame_equal &= (d.reshape(n, -1).amax(dim=1) == 0).numpy()
+    check(worst <= 1 and differ <= JPEG_COEF_SHARE * total,
+          f"jpeg_still coefficients vs CPU: {differ} of {total} differ, "
+          f"max {worst}")
+    # the CPU run's bytes: encode_batch's host half on its coefficients
+    # (encode_batch is coefficients() then entropy_encode()); every
+    # variant codes the same coefficients losslessly, so one CPU decode
+    # of the first variant's bytes is every variant's reference
+    planes = [np.ascontiguousarray(c.cpu().numpy()) for c in coefs]
+    planes_cpu = [np.ascontiguousarray(c.numpy()) for c in coefs_cpu]
+    out_cpu = None
+    variants = {}
+    for name, kw in JPEG_VARIANTS.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        datas = jpeg_tpu.encode_batch(fb, JPEG_Q, **kw)
+        enc_s = time.perf_counter() - t0
+        want = jpeg_tpu.entropy_encode(planes_cpu, cpu_fb.width,
+                                       cpu_fb.height, subsamp, qy, qc, **kw)
+        same = [a == b for a, b in zip(datas[:n], want)]
+        check(all(s for s, eq in zip(same, frame_equal) if eq),
+              f"jpeg_still {name}: bytes differ from the CPU's where the "
+              f"coefficients are equal ({same}, {frame_equal.tolist()})")
+        t0 = time.perf_counter()
+        jpeg_tpu.entropy_encode(planes, fb.width, fb.height, subsamp, qy, qc,
+                                **kw)
+        entropy_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = jpeg_tpu.decode_batch(datas)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        check(on_card(out) and out.format == "yuv420p"
+              and (out.width, out.height) == (W, H), f"jpeg_still {name} "
+              f"decode: {out.format} {out.width}x{out.height}")
+        if out_cpu is None:
+            out_cpu = jpeg_tpu.decode_batch(want, device="cpu")
+        dec_err = planes_lsb(head_cpu(out, n), out_cpu)
+        check(dec_err <= 1, f"jpeg_still {name} decode vs CPU: {dec_err} LSB")
+        t0 = time.perf_counter()
+        jpeg_tpu.entropy_decode(datas)
+        entropy_dec_s = time.perf_counter() - t0
+        variants[name] = {
+            "bytes_per_image": sum(len(d) for d in datas) / len(datas),
+            "cpu_frames_bytes_equal": int(sum(same)), "encode_s": enc_s,
+            "encode_images_per_s": fb.batch / enc_s,
+            "host_entropy_encode_ms": entropy_s * 1e3,
+            "decode_s": dec_s, "decode_images_per_s": fb.batch / dec_s,
+            "host_entropy_decode_ms": entropy_dec_s * 1e3,
+            "decode_max_lsb_vs_cpu": dec_err,
+            "source_round_trip_mean_lsb": round_trip_mean(fb, out)}
+    # the round trip of smooth content (the JAX test's kind) at JPEG_Q
+    smooth = filter_frames(FILTER_CPU_FRAMES, SEED + 23)
+    back = jpeg_tpu.decode_batch(jpeg_tpu.encode_batch(smooth, JPEG_Q))
+    rt = round_trip_mean(smooth, back)
+    check(rt < JPEG_RT_MEAN, f"jpeg_still smooth round trip: mean {rt} LSB")
+    # the device programs, timed from prebuilt inputs
+    fb2 = fb.with_planes({k: torch.flip(v, (0,)).contiguous()
+                          for k, v in fb.planes.items()})
+    pair = (fb, fb2)
+    coef_ms, coef_runs, coef_host = event_ms(
+        lambda i: jpeg_tpu.coefficients(pair[i % 2], JPEG_Q), calls=2,
+        reps=5)
+    w, h, _s, hcoefs, tables = jpeg_tpu.entropy_decode(
+        jpeg_tpu.encode_batch(fb, JPEG_Q))
+    dcoefs = [to_device(c, "cuda") for c in hcoefs]
+    dtables = [to_device(q, "cuda") for q in tables]
+    pix_ms, pix_runs, pix_host = event_ms(
+        lambda i: jpeg_tpu.pixels(dcoefs, dtables), calls=2, reps=5)
+    samples = sum(v.numel() for v in fb.planes.values())
+    coef_bytes = samples * (1 + 2)      # u8 in, int16 out (and back)
+    bound_ms = coef_bytes / HBM_BYTES_PER_S * 1e3
+    emit("jpeg_still", source=[fb.batch, H, W], quality=JPEG_Q,
+         coefficients_vs_cpu={"frames": n, "differ": differ,
+                              "total": total, "max_abs": worst,
+                              "allowed_share": JPEG_COEF_SHARE},
+         variants=variants, smooth_round_trip_mean_lsb=rt,
+         coefficient_program={"ms_per_batch": coef_ms, "runs_ms": coef_runs,
+                              "host_ms": coef_host, "bytes": coef_bytes,
+                              "bound_ms": bound_ms,
+                              "bound_share": bound_ms / coef_ms},
+         pixel_program={"ms_per_batch": pix_ms, "runs_ms": pix_runs,
+                        "host_ms": pix_host, "bytes": coef_bytes,
+                        "bound_ms": bound_ms,
+                        "bound_share": bound_ms / pix_ms},
+         phase_s=time.perf_counter() - t_phase)
+
+
+def stills_av(tmp):
+    """The still paths that need libav*, where the host runtime can be
+    built: overlay=path= with a .jpg written by av/jpeg.py on a 1080p
+    batch, card against CPU (0 LSB), and gmat-extract's JPEG output on the
+    card, bytes equal to device="cpu"; otherwise say why not."""
+    if not av_precondition("stills_av"):
+        return None
+    from gmat_tpu_torch.apps import extract
+    from gmat_tpu_torch.av import jpeg
+    from gmat_tpu_torch.filters.graph import FilterGraph
+    rng = np.random.default_rng(SEED + 29)
+    still = os.path.join(tmp, "still.jpg")
+    with open(still, "wb") as f:
+        f.write(jpeg.encode_rgb_to_jpeg(
+            rng.integers(0, 256, (270, 480, 3)).astype(np.uint8)))
+    fb = filter_frames(FILTER_CPU_FRAMES, SEED + 31)
+    spec = f"overlay=path={still}:x=-101+n*64:y=main_h-overlay_h-n"
+    got, _ = FilterGraph(spec).process(fb, pts=np.arange(fb.batch))
+    want, _ = FilterGraph(spec).process(head_cpu(fb, fb.batch),
+                                        pts=np.arange(fb.batch))
+    err = planes_lsb(got, want)
+    check(err == 0, f"stills_av overlay=path= vs CPU: {err} LSB")
+    clip = os.path.join(tmp, "stills.mp4")
+    smart_clip(clip)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        d = os.path.join(tmp, f"extract_{dev}")
+        os.makedirs(d)
+        check(extract.main(["-i", clip, "-interval", "20", "-o",
+                            os.path.join(d, "f_%d.jpg")], device=dev) == 0,
+              f"gmat-extract on {dev}")
+        outs[dev] = [open(os.path.join(d, name), "rb").read()
+                     for name in sorted(os.listdir(d))]
+    check(len(outs["cuda"]) == SMART_FRAMES // 20
+          and outs["cuda"] == outs["cpu"],
+          f"gmat-extract JPEG: {len(outs['cuda'])} files on the card, "
+          "bytes equal to the CPU's: " + str(outs["cuda"] == outs["cpu"]))
+    emit("stills_av", run=True, overlay_path_max_lsb_vs_cpu=err,
+         extract_jpegs=len(outs["cuda"]), extract_bytes_equal_cpu=True)
+    return err
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
                  "script needs one CUDA device")
+    from gmat_tpu_torch.av import native
     from gmat_tpu_torch.core.frame import FrameBatch, pack_nv12
     from gmat_tpu_torch.ops import _build, fused, ladder, rungs
 
@@ -1665,7 +2222,11 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    _build.library()
+    # the JPEG lane's host coder (g++) builds beside the kernels (nvcc)
+    with ThreadPoolExecutor(1) as pool:
+        jpeg_lib = pool.submit(native.load, "gmat_jpeg")
+        _build.library()
+        jpeg_lib.result()
     emit("device", name=card_name, capability=list(cap), nvidia_smi=smi,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, build_s=time.perf_counter() - t0,
@@ -1711,6 +2272,14 @@ def main() -> None:
     emit("main_path", shape=list(out.shape), launches=main_counts,
          max_lsb_vs_plain=err_k1, quality_gate_lsb=gate,
          fused_case_launches=fused_counts, fused_case_max_lsb=err_fused)
+
+    # ------------------------- in-graph inference (K1 -> ESPCN, config #4)
+    infer_pair = tuple(FrameBatch({k: v[:INFER_BATCH]
+                                   for k, v in b.planes.items()},
+                                  "yuv420p", W, H) for b in bufs)
+    infer_launches, rgb224 = infer_pipeline(fused, ladder, infer_pair)
+    infer_models(rgb224)
+    del infer_pair, rgb224
 
     # ------------------------------------------------------ K2 (bf16)
     p10 = make(N, H, W, H // 2, W // 2, hi=1024, dtype=torch.uint16)
@@ -1899,6 +2468,8 @@ def main() -> None:
         filtered = abr_filtered(rungs, src, LADDER_1080_I8, abr_i8["fps"])
         hdr = abr_hdr(rungs, tmp, LADDER_1080_I8, abr_i8["fps"])
         ivtc = abr_ivtc(rungs, src, tmp, LADDER_1080_I8, abr_i8["fps"])
+        enhance = abr_enhance(rungs, src, LADDER_1080_I8, abr_i8["fps"])
+        jpeg_still(src)
         rung_src = [tuple(b[0].planes[k] for k in "yuv")
                     for b in abr["batches"][:2]]
         for b in abr["batches"] + abr_i8["batches"]:
@@ -1987,6 +2558,7 @@ def main() -> None:
         scene_ms = scene_phase(src)
         metrans_session(src, tmp)
         smart_decode(tmp)
+        stills_av(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2154,9 +2726,13 @@ def main() -> None:
     rungs_i8_row["launches_abr_filtered"] = filtered["rungs_i8"]
     rungs_i8_row["launches_abr_hdr"] = hdr["rungs_i8"]
     rungs_i8_row["launches_abr_ivtc"] = ivtc["rungs_i8"]
+    rungs_i8_row["launches_abr_enhance"] = enhance["rungs_i8"]
+    k1 = row("ladder_i8", "ladder_i8", 455, "_ladder_kernel_i8",
+             main_counts["ladder_i8"], err_k1)
+    # the in-graph inference path launches it once per batch
+    k1["launches_infer"] = infer_launches
     kernels = [
-        row("ladder_i8", "ladder_i8", 455, "_ladder_kernel_i8",
-            main_counts["ladder_i8"], err_k1),
+        k1,
         k2,
         row("ladder_i8 (K3 at 8K)", "ladder_i8_8k", 1230,
             "_ladder_kernel_i8_chunked", wide_counts["ladder_i8"],

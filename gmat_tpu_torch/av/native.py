@@ -1,4 +1,5 @@
-"""ctypes bindings to the native host runtime (csrc/gmat_av.cpp).
+"""ctypes bindings to the native host runtime (csrc/gmat_av.cpp) and the
+JPEG entropy coder (csrc/gmat_jpeg.cpp).
 
 A copy of `gmat_tpu/av/native.py` that builds into the port's own
 `gmat_tpu_torch/av/_lib/` (listed in .gitignore) from the repo's shared
@@ -6,8 +7,9 @@ A copy of `gmat_tpu/av/native.py` that builds into the port's own
 compiled with g++ on first `load()` (seconds).  This mirrors how the
 reference ships `CFrameExtractor.so`/`CHeif.so` C shims consumed by ctypes
 (metrans/python/frame_extractor.py:22-52).  The demux/decode/encode/mux
-library links against libav* (FFmpeg); where those are missing, `load()`
-raises.
+library links against libav* (FFmpeg); where those are missing,
+`load("gmat_av")` raises.  The JPEG coder needs nothing but the C++
+standard library.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ _LIBDIR = _PKG / "_lib"
 _LIBS = {
     "gmat_av": (["gmat_av.cpp"], ["-lavformat", "-lavcodec", "-lavutil",
                                   "-lswscale", "-lswresample"]),
+    "gmat_jpeg": (["gmat_jpeg.cpp"], []),
 }
 
 
@@ -34,12 +37,16 @@ def _build(name: str) -> Path:
                             for p in src_paths):
         return out
     _LIBDIR.mkdir(exist_ok=True)
+    # build beside the target and rename: processes that build at once
+    # never load a half-written library
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = ["g++", "-O2", "-fPIC", "-shared", "-fvisibility=hidden",
            "-std=c++17", "-Wall", "-pthread",
-           "-o", str(out)] + [str(p) for p in src_paths] + libs
+           "-o", str(tmp)] + [str(p) for p in src_paths] + libs
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"building {name} failed:\n{r.stderr}")
+    os.replace(tmp, out)
     return out
 
 
@@ -215,6 +222,43 @@ def _declare(name: str, lib: ctypes.CDLL):
                                               ctypes.POINTER(ctypes.c_ushort),
                                               ctypes.POINTER(ctypes.c_ushort),
                                               c_ll, ctypes.c_int]),
+        }
+    elif name == "gmat_jpeg":
+        c_pi16 = ctypes.POINTER(ctypes.c_int16)
+        sigs = {
+            "gjpeg_last_error": (ctypes.c_char_p, []),
+            "gjpeg_encode": (ctypes.c_int, [c_pi16, c_pi16, c_pi16,
+                                            ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_int, c_pu8, c_pu8,
+                                            c_pu8, c_ll]),
+            "gjpeg_encode_r": (ctypes.c_int, [c_pi16, c_pi16, c_pi16,
+                                              ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_int, c_pu8, c_pu8,
+                                              c_pu8, c_ll, ctypes.c_int]),
+            "gjpeg_encode_ro": (ctypes.c_int, [c_pi16, c_pi16, c_pi16,
+                                               ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_int, c_pu8, c_pu8,
+                                               c_pu8, c_ll, ctypes.c_int,
+                                               ctypes.c_int]),
+            "gjpeg_encode_progressive": (ctypes.c_int,
+                                         [c_pi16, c_pi16, c_pi16,
+                                          ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_int, c_pu8, c_pu8,
+                                          c_pu8, c_ll]),
+            "gjpeg_encode_progressive_r": (ctypes.c_int,
+                                           [c_pi16, c_pi16, c_pi16,
+                                            ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_int, c_pu8, c_pu8,
+                                            c_pu8, c_ll, ctypes.c_int]),
+            "gjpeg_parse": (ctypes.c_void_p, [c_pu8, c_ll]),
+            "gjpeg_decode_coefs_mt": (ctypes.c_int,
+                                      [ctypes.c_void_p, c_pi16, c_pi16,
+                                       c_pi16, ctypes.c_int]),
+            "gjpeg_info": (None, [ctypes.c_void_p, c_pi, c_pi, c_pi]),
+            "gjpeg_qtable": (None, [ctypes.c_void_p, ctypes.c_int, c_pu8]),
+            "gjpeg_decode_coefs": (ctypes.c_int, [ctypes.c_void_p, c_pi16,
+                                                  c_pi16, c_pi16]),
+            "gjpeg_free": (None, [ctypes.c_void_p]),
         }
     else:
         sigs = {}

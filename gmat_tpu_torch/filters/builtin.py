@@ -21,16 +21,15 @@ errors:
   shuffleframes / reverse / tpad / loop / framerate / fade / zoompan
                                                 <- temporal and structural
   blend / tblend / xfade / psnr / ssim          <- two inputs (video=FILE)
+  overlay (+overlay_cuda)                       <- video=FILE or a still
+  infer (+tensorrt)                             <- filters/infer.py models
 
 Each filter is a factory: FILTERS[name](**options) -> callable.  Pure
 filters map FrameBatch -> FrameBatch on the batch's device; keep-mask
 filters (`batch_control`) and stream filters (`stream_filter`) keep the
 JAX package's host logic and are run by filters/graph.FilterGraph.
 Host tables (LUTs, masks, index maps) are built once and kept on the
-batch's device.
-
-Every other JAX filter name is in FILTERS too: its factory raises
-NotImplementedError naming the ROADMAP.md item that ports it.
+batch's device.  All 87 JAX filter names are in FILTERS.
 """
 from __future__ import annotations
 
@@ -4979,26 +4978,284 @@ def _f_ssim(video="", stats_file="", vw=0, vh=0, win=8):
                         vw=vw, vh=vh, win=win)
 
 
-# ---- filters of later port slices ------------------------------------------
+# ---- overlay and in-graph inference ---------------------------------------
 
-# every other JAX filter name, with the ROADMAP.md queue 1 item that ports
-# it: the parser accepts the name, building the filter raises
-_LATER = {
-    "tensorrt": "item 6 (in-graph inference, slice 4)",
-    "infer": "item 6 (in-graph inference, slice 4)",
-    "overlay": "item 7 (stills, slice 5: its still and second-stream "
-               "inputs need av/jpeg.py and the PNG decoder)",
-    "overlay_cuda": "item 7 (stills, slice 5: its still and second-stream "
-                    "inputs need av/jpeg.py and the PNG decoder)",
-}
+class OverlayFilter:
+    """overlay / overlay_cuda analog with a real second input.
+
+    Mirrors vf_overlay_cuda.c's dual-input framesync design
+    (ff_framesync_dualinput_get, :226-245): the main stream flows through
+    the graph; the overlay source is either a second *video stream*
+    (``video=FILE``, decoded on the host in lockstep, one overlay frame
+    per main frame) or a still image (``path=FILE``: .jpg through
+    av/jpeg.py, .png with its alpha through the toolkit's decoder; both
+    need libav*).  The blend runs on the batch's device in the YUV domain
+    on 4:2:0 planes exactly like the reference kernel (ops/overlay.py),
+    or on packed RGB when the main stream is RGB at that point.
+
+    Options:
+      x, y         position — numbers or per-frame expressions with vars
+                   n, t, main_w/mw, main_h/mh, overlay_w/ow, overlay_h/oh
+                   (vf_overlay_cuda.c:47-60 var_names), evaluated on the
+                   host per frame
+      eof_action   repeat (default) | pass | endall — framesync semantics
+                   when the overlay stream ends before the main stream
+      shortest=1   alias for eof_action=endall
+
+    Raw and Y4M overlay streams carry no alpha plane (the reference's
+    NV12-overlay case: opaque); containers decode with alpha, and
+    ops/overlay.overlay_yuv420 implements the yuva420p alpha path.
+    """
+
+    stream_filter = True
+
+    def __init__(self, path="", video="", x="0", y="0",
+                 eof_action="repeat", shortest=0, vw=0, vh=0):
+        if bool(path) == bool(video):
+            raise FilterError("overlay requires exactly one of path=FILE "
+                              "(still) or video=FILE (second stream)")
+        self.video = str(video)
+        # headerless raw overlay inputs (.yuv/.nv12/...) need their
+        # geometry from the caller (vw=W:vh=H)
+        self.vw, self.vh = int(vw), int(vh)
+        self.eof_action = "endall" if int(shortest) else str(eof_action)
+        if self.eof_action not in ("repeat", "pass", "endall"):
+            raise FilterError(f"overlay eof_action {self.eof_action!r}")
+        self._x = self._pos_expr(x)
+        self._y = self._pos_expr(y)
+        self._still = None
+        self._still_alpha = None
+        if path:
+            self._still, self._still_alpha = self._load_still(str(path))
+        self._still_cache = {}
+        self._gen = None
+        self._last = None          # last overlay frame (np plane dict)
+        self._ended = False
+        self._n = 0                # frames seen (expr var n)
+
+    @staticmethod
+    def _load_still(path: str):
+        """(rgb (h, w, 3) u8, alpha (h, w) u8 or None), even dims."""
+        if path.lower().endswith(".png"):
+            # PNG watermark with a real alpha channel (the yuva420p
+            # overlay case, vf_overlay_cuda.c formats_match)
+            from ..av import toolkit as tk
+            from ..core.frame import from_numpy_yuv420
+            dec = tk.Decoder(codec_id=tk.codec_id("png"))
+            with open(path, "rb") as f:
+                data = f.read()
+            frames = list(dec.decode_alpha(data)) + \
+                list(dec.decode_alpha(None))
+            dec.close()
+            if not frames:
+                raise FilterError(f"could not decode png {path!r}")
+            yy, uu, vv, aa, _ = frames[0]
+            h2, w2 = yy.shape[0] & ~1, yy.shape[1] & ~1
+            # swscale converted RGBA->YUVA with unspecified-colorspace
+            # defaults (BT.601); invert with the same matrix
+            fb = from_numpy_yuv420(yy[None, :h2, :w2],
+                                   uu[None, :h2 // 2, :w2 // 2],
+                                   vv[None, :h2 // 2, :w2 // 2],
+                                   colorspace="bt601", device="cpu")
+            img = csc.convert(fb, "rgb24").planes["rgb"][0].numpy()
+            return img, aa[:h2, :w2]
+        from ..av.jpeg import decode_jpeg_to_rgb
+        img = decode_jpeg_to_rgb(path)      # (h, w, 3) uint8
+        # even dims so the 4:2:0 conversion is well-defined
+        return img[: img.shape[0] & ~1, : img.shape[1] & ~1], None
+
+    @staticmethod
+    def _pos_expr(v):
+        try:
+            return float(v)
+        except (TypeError, ValueError):
+            return compile_expr(str(v))
+
+    # -- overlay frame sourcing ---------------------------------------------
+    def _video_gen(self):
+        if self.video.lower().endswith((".y4m", ".yuv", ".nv12", ".iyuv",
+                                        ".raw")):
+            # raw readers have no alpha: the shared second-input reader
+            yield from _second_stream(self.video, self.vw, self.vh,
+                                      "overlay video (overlay=video=bg.yuv:"
+                                      "vw=640:vh=360)")
+            return
+        # containers: alpha-aware decode (yuva420p target) so overlays
+        # from alpha-carrying codecs (png/qtrle/prores4444) blend properly
+        from ..av import toolkit as tk
+        dm = tk.Demuxer(self.video)
+        dec = tk.Decoder.from_demuxer(dm)
+        try:
+            def frames():
+                for pkt in dm:
+                    if pkt.stream == 0:
+                        yield from dec.decode_alpha(pkt.data, pkt.pts)
+                yield from dec.decode_alpha(None)
+            for (y, u, v, a, _p) in frames():
+                yield {"y": y, "u": u, "v": v, "a": a}
+        finally:
+            dm.close()
+            dec.close()
+
+    def _next_overlay(self):
+        """One overlay frame dict, or None when exhausted (pre-eof_action)."""
+        if self._still is not None:
+            return {"rgb": self._still}
+        if self._gen is None:
+            self._gen = self._video_gen()
+        try:
+            frame = next(self._gen)
+            self._last = frame
+            return frame
+        except StopIteration:
+            return None
+
+    def _still_as(self, domain, colorspace="bt709"):
+        """Still image in 'rgb' or 'yuv' domain (host planes, converted
+        once on the host and cached).  colorspace: the MAIN stream's
+        matrix — a bt601 main needs the still encoded with bt601."""
+        key = (domain, colorspace)
+        if key not in self._still_cache:
+            from ..core.frame import from_numpy_rgb
+            if domain == "rgb":
+                d = {"rgb": self._still}
+            else:
+                fb = csc.convert(from_numpy_rgb(self._still,
+                                                colorspace=colorspace,
+                                                device="cpu"), "yuv420p")
+                d = {k: v[0].numpy() for k, v in fb.planes.items()}
+            if self._still_alpha is not None:
+                d = dict(d, a=self._still_alpha)
+            self._still_cache[key] = d
+        return self._still_cache[key]
+
+    # -- stream protocol ------------------------------------------------------
+    def process_batch(self, fb: FrameBatch, meta):
+        from ..ops import overlay as ov
+        if self._ended:
+            return _empty_like(fb), _meta_take(meta, slice(0, 0))
+        nb = fb.batch
+        keep = np.asarray(meta["keep"]).copy()
+        # expression var n counts frames that reach the filter (ffmpeg
+        # inlink frame_count): masked/padded frames never arrive
+        n_base = self._n
+        rgb_main = fb.fmt.is_rgb
+        if rgb_main and fb.format not in ("rgb24", "rgba"):
+            # the RGB blend assumes packed 8-bit (N,H,W,C)
+            raise FilterError(
+                f"overlay on RGB mains supports rgb24/rgba (got "
+                f"{fb.format}); insert format=rgb24 first")
+        if not rgb_main and fb.format not in ("yuv420p", "nv12"):
+            raise FilterError(
+                f"overlay main format {fb.format} unsupported (yuv420p/"
+                "nv12/rgb like vf_overlay_cuda.c formats_match)")
+        domain = "rgb" if rgb_main else "yuv"
+
+        frames, blend_on = [], np.zeros(nb, bool)
+        cut = None
+        for i in range(nb):
+            if not keep[i]:
+                frames.append(None)
+                continue
+            if self._still is not None:
+                frames.append(self._still_as(domain, fb.colorspace))
+                blend_on[i] = True
+                continue
+            f = self._next_overlay()
+            if f is None:                      # overlay stream ended
+                if self.eof_action == "repeat" and self._last is not None:
+                    f = self._last
+                elif self.eof_action == "pass":
+                    frames.append(None)
+                    continue
+                else:                          # endall (or repeat w/o any)
+                    keep[i:] = False
+                    self._ended = True
+                    cut = i
+                    break
+            frames.append(f)
+            blend_on[i] = True
+        if cut is not None:
+            frames += [None] * (nb - len(frames))
+
+        meta = dict(meta)
+        meta["keep"] = keep
+        kept_idx = np.cumsum(keep) - 1          # per-frame kept ordinal
+        self._n += int(keep.sum())
+        if not blend_on.any():
+            return fb, meta
+
+        # stack overlay frames; non-blended slots reuse any real frame and
+        # are pushed fully off-canvas (position = main size) instead
+        ref = next(f for f in frames if f is not None)
+        if domain == "yuv" and "rgb" in ref:
+            raise FilterError("internal: rgb overlay frame in yuv domain")
+        dev = fb.device
+        stack = {k: torch.as_tensor(np.stack([(f or ref)[k] for f in frames]),
+                                    device=dev)
+                 for k in ref}
+        alpha = stack.pop("a", None)
+        if alpha is not None and int(alpha.min()) == 255:
+            alpha = None            # fully opaque: skip the alpha math
+        if domain == "rgb" and "rgb" not in ref:
+            tmp = FrameBatch({k: stack[k] for k in "yuv"}, "yuv420p",
+                             ref["y"].shape[1], ref["y"].shape[0],
+                             fb.colorspace)
+            stack = {"rgb": csc.convert(tmp, "rgb24").planes["rgb"]}
+
+        ow = ref["rgb"].shape[1] if "rgb" in ref else ref["y"].shape[1]
+        oh = ref["rgb"].shape[0] if "rgb" in ref else ref["y"].shape[0]
+        times = meta.get("times")
+        xs = np.full(nb, fb.width, np.int64)       # off-canvas default
+        ys = np.full(nb, fb.height, np.int64)
+        static = isinstance(self._x, float) and isinstance(self._y, float)
+        if static:
+            xs[blend_on] = int(self._x)
+            ys[blend_on] = int(self._y)
+        else:
+            env = {"main_w": float(fb.width), "mw": float(fb.width),
+                   "main_h": float(fb.height), "mh": float(fb.height),
+                   "overlay_w": float(ow), "ow": float(ow),
+                   "overlay_h": float(oh), "oh": float(oh)}
+            for i in np.nonzero(blend_on)[0]:
+                env["n"] = float(n_base + kept_idx[i])
+                env["t"] = float(times[i]) if times is not None else 0.0
+                xs[i] = int(self._x if isinstance(self._x, float)
+                            else self._x(env))
+                ys[i] = int(self._y if isinstance(self._y, float)
+                            else self._y(env))
+
+        if domain == "rgb":
+            out = ov.overlay_rgb(fb.planes["rgb"], stack["rgb"], alpha,
+                                 xs, ys)
+            return fb.with_planes({"rgb": out}), meta
+        planes = ov.overlay_yuv420(fb.planes, stack, alpha, xs, ys)
+        return fb.with_planes(planes), meta
+
+    def flush(self):
+        if self._gen is not None:
+            self._gen.close()
+            self._gen = None
+        return None
 
 
-def _later(name: str, item: str) -> Callable:
-    def build(**_kw):
-        raise NotImplementedError(
-            f"filter {name!r} is not ported to gmat_tpu_torch yet: it "
-            f"comes with ROADMAP.md queue 1, {item}")
-    return build
+def _f_overlay(path="", x=0, y=0, video="", eof_action="repeat", shortest=0):
+    return OverlayFilter(path=path, video=video, x=x, y=y,
+                         eof_action=eof_action, shortest=shortest)
+
+
+def _f_infer(model="sr2x", weights="", luma_only=0, precision="bf16",
+             hidden=0):
+    """tensorrt-filter analog: run a PyTorch model in the graph.
+
+    model: 'sr2x' | 'sr3x' | 'denoise' | 'pose' | 'classify' or
+    'module:function' for user models.  Mirrors vf_tensorrt's two IO
+    modes (vf_tensorrt.c:206-217): 3-channel RGBPF32 in/out, or luma-only
+    with chroma passthrough (copy_UV_plane, tensorrt.cpp:562-584).
+    """
+    from .infer import InferFilter
+    return InferFilter(model, weights, luma_only=bool(int(luma_only)),
+                       precision=precision, hidden=int(hidden))
 
 
 FILTERS: Dict[str, Callable] = {
@@ -5085,7 +5342,10 @@ FILTERS: Dict[str, Callable] = {
     "doubleweave": lambda **kw: WeaveFilter(double_weave=1, **kw),
     "psnr": _f_psnr,
     "ssim": _f_ssim,
-    **{name: _later(name, item) for name, item in _LATER.items()},
+    "overlay": _f_overlay,
+    "overlay_cuda": _f_overlay,
+    "tensorrt": _f_infer,
+    "infer": _f_infer,
 }
 
 from . import hdr  # noqa: E402,F401 — registers tonemap/zscale into FILTERS

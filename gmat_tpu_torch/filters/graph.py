@@ -219,6 +219,9 @@ class FilterGraph:
                  stream_meta: Optional[Dict] = None):
         self.spec = spec
         self.segments: List = []
+        # every instance, chain order: the handle for reading per-filter
+        # state after processing (infer's last_output, select counters)
+        self.filters: List = []
         self.link_state: Dict = dict(stream_meta or {})
         pure: List = []
         for name, kwargs in parse_graph(spec):
@@ -229,6 +232,7 @@ class FilterGraph:
             if getattr(factory, "wants_link", False):
                 kwargs.setdefault("_link", self.link_state)
             inst = factory(**kwargs)
+            self.filters.append(inst)
             if getattr(inst, "batch_control", False):
                 kind = "control"
             elif getattr(inst, "stream_filter", False):

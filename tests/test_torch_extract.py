@@ -263,19 +263,42 @@ def test_extract_app_y4m_matches_jax(clips, tmp_path, no_jax_cache, flags):
 
 
 @pytest.mark.parametrize("out", ["f_%d.jpg", "still.jpeg", "img%04d.png"])
-def test_extract_app_jpeg_waits_for_the_stills_slice(clips, tmp_path,
-                                                     monkeypatch, out):
-    """JPEG output raises before anything is decoded (the JAX app also
-    resolves its output first)."""
+def test_extract_app_jpeg_matches_jax(clips, tmp_path, no_jax_cache, out):
+    """JPEG stills (a %d pattern, a plain .jpg name that becomes
+    base_%d.jpg, a %04d pattern with another extension) are byte-equal to
+    the JAX app's: the same frames, full-range expansion and entropy
+    coding.  An unsupported output still fails before any decode."""
+    flags = ["-interval", "20", "-quality", "88"]
+    (tmp_path / "p").mkdir()
+    (tmp_path / "j").mkdir()
+    assert extract.main(["-i", clips["plain"], "-o",
+                         str(tmp_path / "p" / out)] + flags,
+                        device="cpu") == 0
+    assert jextract.main(["-i", clips["plain"], "-o",
+                          str(tmp_path / "j" / out)] + flags) == 0
+    got = sorted(p.name for p in (tmp_path / "p").iterdir())
+    assert got == sorted(p.name for p in (tmp_path / "j").iterdir())
+    assert len(got) == NFRAMES // 20
+    for name in got:
+        data = (tmp_path / "p" / name).read_bytes()
+        assert data[:2] == b"\xff\xd8"
+        assert data == (tmp_path / "j" / name).read_bytes()
+
     def no_decode(*a, **k):
         raise AssertionError("decoded before the output was resolved")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(extract, "FrameExtractor", no_decode)
+        mp.setattr(extract, "FrameSelect", no_decode)
+        with pytest.raises(SystemExit, match="unsupported output"):
+            extract.main(["-i", clips["plain"], "-o",
+                          str(tmp_path / "x.mp4")])
 
-    monkeypatch.setattr(extract, "FrameExtractor", no_decode)
-    monkeypatch.setattr(extract, "FrameSelect", no_decode)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        extract.main(["-i", clips["plain"], "-o", str(tmp_path / out)])
-    with pytest.raises(SystemExit, match="unsupported output"):
-        extract.main(["-i", clips["plain"], "-o", str(tmp_path / "x.mp4")])
+
+def test_still_pattern_matches_jax_cli():
+    from gmat_tpu.apps.cli import still_pattern
+    for out in ("f_%d.jpg", "a%%b_%03d.jpg", "still.jpeg", "x.y.jpg",
+                "100%.jpg", "noext"):
+        assert extract.still_pattern(out) == still_pattern(out)
 
 
 @pytest.mark.parametrize("interval,out_size,batch", [

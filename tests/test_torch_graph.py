@@ -2,7 +2,7 @@
 filters/expr) against the JAX package's on the same inputs, on the CPU:
 the parser, every ported filter through FilterGraph with its options in
 positional and named form, multi-batch sequences of the stream and
-keep-mask filters with flush, and the filter names of later slices.
+keep-mask filters with flush, and every filter name building.
 
 Bounds: 0 LSB for integer filters and for keep masks, pts and fps_mul;
 <= 1 LSB for the f32 resamplers and conversions (scale, rotate, gaussian
@@ -160,13 +160,6 @@ def test_tables_match_jax():
     assert set(builtin.FILTERS) == set(jbuiltin.FILTERS)
 
 
-@pytest.mark.parametrize("name", sorted(builtin._LATER))
-def test_later_filters_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1, "
-                                                  r"(item \d|slice 3, part 3)"):
-        graph.FilterGraph(name)
-
-
 # the options a filter needs to build (the rest build with none)
 _BUILD_OPTS = {"crop": "=16:16", "crop_nvcv": "=16:16", "scale": "=32:16",
                "scale_cuda": "=32:16", "scale_npp": "=32:16",
@@ -174,21 +167,18 @@ _BUILD_OPTS = {"crop": "=16:16", "crop_nvcv": "=16:16", "scale": "=32:16",
                # the second-input filters: the file opens at the first
                # batch, not at build time
                "blend": "=video=bottom.y4m", "xfade": "=video=b.y4m",
-               "psnr": "=video=ref.y4m", "ssim": "=video=ref.y4m"}
+               "psnr": "=video=ref.y4m", "ssim": "=video=ref.y4m",
+               "overlay": "=video=over.y4m",
+               "overlay_cuda": "=video=over.y4m",
+               # the bundled espcn_x2 checkpoint loads at build time
+               "infer": "=sr2x", "tensorrt": "=sr2x:precision=fp32"}
 
 
 @pytest.mark.parametrize("name", sorted(jbuiltin.FILTERS))
 def test_every_filter_name_builds_or_names_its_item(name):
-    """All 87 JAX filter names: each builds in the port and runs on a
-    small batch as the JAX one does, or raises NotImplementedError naming
-    the ROADMAP.md item that ports it."""
+    """All 87 JAX filter names build in the port into the segments the
+    JAX graph builds (none raises NotImplementedError any more)."""
     spec = name + _BUILD_OPTS.get(name, "")
-    if name in builtin._LATER:
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md queue 1, "
-                                 r"(item \d|slice 3, part 3)"):
-            graph.FilterGraph(spec)
-        return
     g = graph.FilterGraph(spec)
     assert [k for k, _ in g.segments] == \
         [k for k, _ in jgraph.FilterGraph(spec).segments]

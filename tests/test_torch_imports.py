@@ -41,7 +41,13 @@ def test_import_pulls_in_no_jax():
         "gmat_tpu_torch.ops.deband, gmat_tpu_torch.ops.noise, "
         "gmat_tpu_torch.ops.vignette, gmat_tpu_torch.ops.delogo, "
         "gmat_tpu_torch.ops.blend, gmat_tpu_torch.ops.metrics, "
-        "gmat_tpu_torch.filters.xfade\n"
+        "gmat_tpu_torch.filters.xfade, gmat_tpu_torch.models, "
+        "gmat_tpu_torch.models.sr, gmat_tpu_torch.models.denoise, "
+        "gmat_tpu_torch.models.pose, gmat_tpu_torch.models.classify, "
+        "gmat_tpu_torch.filters.infer, gmat_tpu_torch.ops.dct, "
+        "gmat_tpu_torch.ops.overlay, gmat_tpu_torch.av.jpeg_tpu, "
+        "gmat_tpu_torch.av.jpeg, gmat_tpu_torch.utils.png, "
+        "gmat_tpu_torch.utils.hostpool\n"
         "bad = [m for m in sys.modules if m.startswith('jax') "
         "or m == 'gmat_tpu' or m.startswith('gmat_tpu.')]\n"
         "print(bad)\n"

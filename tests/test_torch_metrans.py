@@ -200,17 +200,30 @@ _FILTERED = {
     # fade in, as chip_smoke.py's abr_ivtc phase runs it
     "ivtc": ("detelecine=first_field=top:pattern=23,fade=in:0:12",
              ("", "hflip")),
+    # in-graph inference as the common graph, in the default bf16 lane:
+    # luma-only ESPCN x2 (seeded weights both packages load, {sr_luma})
+    # and the bundled 3-channel DnCNN back to yuv420p
+    "infer_sr2x_luma": ("infer=sr2x:luma_only=1:weights={sr_luma}",
+                        ("", "hflip")),
+    "infer_denoise": ("infer=denoise,format=yuv420p", ("", "")),
 }
 # the key select needs an encoded source's keyframe flags
 _SOURCES = {"rung_fps_key_select": "mp4", "hdr10_to_sdr": "y4m10",
             "ivtc": "telecined"}
-# every case hands the encoders equal frames but the HDR chain's: its f32
+# every case hands the encoders equal frames but the HDR chain's and the
+# models': the HDR chain's f32
 # pow/exp/log (the PQ EOTF, the BT.709 OETF) differ by an ulp between
 # XLA's and PyTorch's CPU implementations, which moves a rare sample by
 # 1 LSB (1 of the 241,920 rung samples here); the bound
 # of tests/test_torch_hdr.py, and at most 1 sample in 10^3
-_LSB = {"hdr10_to_sdr": 1}
-_DIFFER = {"hdr10_to_sdr": 1e-3}
+# the model cases likewise: the packages' f32 conv sums run in another
+# order, and a layer output rounds one bf16 step (or, in fp32, a final
+# value one ulp) apart, which moves a rare sample across a rounding edge
+# (4 and 105 of the 241,920 rung samples here for sr2x and denoise; 3
+# and 4 in fp32); tests/test_torch_infer.py's bound
+_LSB = {"hdr10_to_sdr": 1, "infer_sr2x_luma": 1, "infer_denoise": 1}
+_DIFFER = {"hdr10_to_sdr": 1e-3, "infer_sr2x_luma": 1e-3,
+           "infer_denoise": 1e-3}
 
 
 def make_pq_y4m(path, n=NF):
@@ -251,6 +264,17 @@ def make_telecined_y4m(path, n=24):
     return int(keep.sum())
 
 
+def _sr_luma_ckpt(tmp_path):
+    """A luma-only ESPCN x2 checkpoint of seeded weights (the port's init,
+    generator seed 3), which both packages load by key."""
+    from gmat_tpu_torch import models
+    from gmat_tpu_torch.models import sr
+    params = sr.init_params(models.generator(3), channels=1, device="cpu")
+    path = str(tmp_path / "sr_luma.npz")
+    np.savez(path, **{k: v.numpy() for k, v in params.items()})
+    return path
+
+
 @pytest.mark.parametrize("case", sorted(_FILTERED))
 def test_filtered_session_matches_jax(monkeypatch, tmp_path, y4m, case):
     """VideoFilterDesc and rung filters, both packages on the CPU: every
@@ -279,6 +303,12 @@ def test_filtered_session_matches_jax(monkeypatch, tmp_path, y4m, case):
     else:
         src = y4m
     common, rung_filters = _FILTERED[case]
+    if case.startswith("infer"):
+        common = common.format(sr_luma=_sr_luma_ckpt(tmp_path))
+        # the JAX graphs op by op: jitted, XLA fuses the bf16 lane's
+        # casts (tests/test_torch_infer.py)
+        monkeypatch.setattr(jgraph.FilterGraph, "_jit_pure",
+                            lambda self, idx, fn: fn)
     sizes = ((96, 64), (48, 32))
     seen_port = _capture(monkeypatch, metrans)
     seen_jax = _capture(monkeypatch, jmetrans)
