@@ -16,8 +16,9 @@ filtered ABR path (common graph -> ladder -> rung graphs), a 10-bit
 PQ file through the HDR10 -> SDR chain as the common graph, a
 telecined file through inverse telecine as the common graph, and its
 first batch through a DnCNN as the common graph and through the JPEG
-still codec -- and holds every kernel against its plain PyTorch version
-on the card:
+still codec; and the whole file through the gmat CLI as a user runs it
+-- and holds every kernel against its plain PyTorch version on the
+card:
 
   device           card name, compute capability, power limit, kernel build
   main_path        K1 (ladder_i8) through preprocess_nchw, quality gate vs
@@ -28,11 +29,14 @@ on the card:
                    rtol 1e-4 / atol 1e-5 of the CPU on 4 frames, bf16 within
                    the JAX bf16 bound (8 LSB max, 1 mean) of fp32; ladder,
                    model and chain ms, frames/s, counted FLOPs and their
-                   share of the card's peak
+                   share of the card's peak; bf16 within one bf16 step
+                   (rtol 2^-7, atol 2^-8) of the CPU's bf16 on 4 frames
   infer_models     sr2x h128, sr3x, classify (224^2), pose (120^2), luma
                    sr2x (540x960), luma and 3-channel DnCNN (1080p) through
                    FilterGraph, bf16 and fp32, against the CPU on 2 frames
-                   (the 1080p ones cut to 544x960), timed on 32 frames
+                   (the 1080p ones cut to 544x960): fp32 within rtol 1e-4,
+                   bf16 within one bf16 step (1 LSB on u8 planes) of the
+                   CPU's bf16; timed on 32 frames
   ladder_bf16      K2 (ladder_bf16): use_kernel="bf16", yuv420p10, yuv444p
   ladder_wide      K3 (ladder_i8 at 8K) and a 5760x3240 frame
   ladder_ragged    ladder_i8 and ladder_bf16 on 4 x 998x562 -> 225x223: no
@@ -107,9 +111,19 @@ on the card:
                    filters, where libavcodec exists
   smart_decode     FrameExtractor, FrameSelect and extract_to_torch on a
                    small libx264 clip, where libavcodec exists
-  stills_av        overlay=path= with a .jpg (av/jpeg.py) and gmat-extract's
-                   JPEG output on the card against the CPU, where
-                   libavcodec exists
+  cli              the gmat CLI (apps/cli.main, device="cuda") on the ABR
+                   source: scale + unsharp -> 720p Y4M, the tensorrt doc
+                   pipeline 540p -> sr2x -> 1080p Y4M in bf16 and fp32,
+                   the user guide's nvcv pipeline -> 8 PNG stills, 224^2
+                   rgbpf32 -> null under a torch.profiler trace: frames in
+                   and out, every graph batch on the card, frames/s, each
+                   against its CPU run on 4 frames (1 LSB; bf16 one step;
+                   the stills' bytes where their planes are equal), CUDA
+                   kernel events in the trace
+  stills_av        overlay=path= with a .jpg (av/jpeg.py), gmat-extract's
+                   JPEG output, a HEIF round trip of a card-made 1080p
+                   frame and the CLI's .heic and .jpg sinks on the card
+                   against the CPU, where libavcodec exists
   timing           CUDA-event medians: kernel, plain version, library call,
                    separate-op path; for the ladder, wire and rung kernels
                    also the wrapper's device and host time and the ptxas
@@ -126,8 +140,10 @@ to compare or time a kernel are not counted.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import ctypes.util
+import io
 import json
 import os
 import re
@@ -372,6 +388,11 @@ ABR_IVTC_COMMON = "detelecine=first_field=top:pattern=23,fade=in:0:12"
 # u8 LSBs from fp32
 INFER_BATCH, INFER_CPU_FRAMES, INFER_RTOL, INFER_ATOL = 32, 4, 1e-4, 1e-5
 BF16_MAX_LSB, BF16_MEAN_LSB = 8.0, 1.0
+# the card's bf16 lane against the CPU's bf16 lane on the same weights: one
+# bf16 step on float outputs, 1 LSB on u8 planes (two f32 sum orders round
+# a layer output a step apart now and then; tests/test_torch_models.py
+# holds the port to JAX on the CPU with the same bound)
+BF16_STEP_RTOL, BF16_STEP_ATOL, BF16_STEP_LSB = 2.0 ** -7, 2.0 ** -8, 1
 # float32 without the tensor cores (the fp32 lane runs no TF32)
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 # the other models through FilterGraph: (spec, source); each checked
@@ -405,6 +426,28 @@ JPEG_Q, JPEG_CPU_FRAMES, JPEG_COEF_SHARE, JPEG_RT_MEAN = 90, 4, 1e-5, 3.0
 JPEG_VARIANTS = {"baseline": {}, "optimize": {"optimize": True},
                  "progressive": {"progressive": True},
                  "restart_8": {"restart_mcus": 8}}
+# the gmat CLI (apps/cli.main) on the ABR source, device="cuda": (name,
+# arguments) of each run, the output named by the run; each is run again
+# on the CPU on CLI_CPU_FRAMES frames, batches of that size, and the
+# card's first frames held to it: scale + unsharp, the user guide's stills
+# and sr2x in fp32 to CLI_LSB, sr2x in bf16 to BF16_STEP_LSB.  The stills
+# are PNG: the .jpg sink (av/jpeg.py) and .heic need libav*, and
+# stills_av runs them where it exists
+CLI_SR = ("scale_npp=960:540,format_cuda=rgbpf32le:255,tensorrt=sr2x{},"
+          "format_cuda=yuv420p")
+CLI_RUNS = (
+    ("scale_unsharp", ["-vf", "scale=1280:720,unsharp", "-o", "out.y4m"]),
+    ("sr2x_bf16", ["-vf", CLI_SR.format(""), "-o", "sr.y4m"]),
+    ("sr2x_fp32", ["-vf", CLI_SR.format(":precision=fp32"), "-o", "sr.y4m"]),
+    ("user_guide", ["-vf", "format=rgb24,hwupload_cuda,crop_nvcv=640:480,"
+                    "flip_nvcv=0,smooth_nvcv=gaussian", "-o", "still_%d.png",
+                    "-frames", "8"]),
+    ("null_224", ["-vf", "scale=224:224,format=rgbpf32le", "-o", "null",
+                  "-stats"]))
+CLI_CPU_FRAMES, CLI_LSB = 4, 1
+# stills_av's HEIF leg: an integer graph (card and CPU planes equal) and
+# the CLI's default crf
+STILLS_HEIF_GRAPH, STILLS_HEIF_CRF = "unsharp", 22.0
 AV_LIBS = ("avformat", "avcodec", "avutil", "swscale", "swresample")
 # smart decode clip: test_extractor.py's, 60 frames with a cut at 30
 SMART_SIZE, SMART_FRAMES, SMART_CUT = (320, 240), 60, 30
@@ -1786,7 +1829,8 @@ def infer_pipeline(fused, ladder, pair):
     -> preprocess_nchw (one ladder_i8 launch) -> (32, 3, 224, 224) ->
     InferFilter("sr2x") with the bundled espcn_x2 -> (32, 3, 448, 448).
     fp32 held to the port's CPU run on INFER_CPU_FRAMES frames of the
-    same 224^2 input, bf16 to fp32 within the JAX bf16 bound; then the
+    same 224^2 input, bf16 to fp32 within the JAX bf16 bound and to the
+    CPU's bf16 run within one bf16 step; then the
     ladder alone, the model alone and the chain timed (CUDA events), with
     the model's counted FLOPs against the card's peak for its precision.
     Returns the launch count and the fp32 224^2 input."""
@@ -1826,6 +1870,11 @@ def infer_pipeline(fused, ladder, pair):
     check(bf_max <= BF16_MAX_LSB and bf_mean <= BF16_MEAN_LSB,
           f"infer_pipeline bf16 vs fp32: max {bf_max}, mean {bf_mean} LSB")
     dc = (runs["bf16"][1][:n].cpu() - cpu["bf16"]).abs() * 255.0
+    bf_step = rel_excess(runs["bf16"][1][:n], cpu["bf16"], BF16_STEP_RTOL,
+                         BF16_STEP_ATOL)
+    check(bf_step <= 1.0, f"infer_pipeline bf16 vs CPU bf16: {bf_step} x "
+          f"the one-bf16-step bound (rtol {BF16_STEP_RTOL}, atol "
+          f"{BF16_STEP_ATOL})")
     del runs, d, f32
     # timing: the ladder alone, the model alone, the chain
     ladder_ms, ladder_runs, ladder_host = event_ms(
@@ -1854,11 +1903,37 @@ def infer_pipeline(fused, ladder, pair):
          bf16_vs_fp32_max_lsb=bf_max, bf16_vs_fp32_mean_lsb=bf_mean,
          bf16_vs_cpu_bf16_max_lsb=float(dc.max()),
          bf16_vs_cpu_bf16_mean_lsb=float(dc.mean()),
+         bf16_vs_cpu_bf16_step_excess=bf_step,
          flops_per_batch=flops, flops_per_frame=flops // INFER_BATCH,
          ladder_ms_per_batch=ladder_ms, ladder_runs_ms=ladder_runs,
          ladder_host_ms=ladder_host, timing=timing,
          phase_s=time.perf_counter() - t_phase)
     return launches, x
+
+
+def bf16_step(spec, got, vec, want, vec_want) -> dict:
+    """The card's bf16 run against the CPU's bf16 run of the same graph:
+    float planes and last_output within one bf16 step, u8 planes within
+    BF16_STEP_LSB."""
+    out = {}
+    if vec is not None:
+        out["last_output_vs_cpu_bf16_step_excess"] = rel_excess(
+            torch.as_tensor(vec), torch.as_tensor(vec_want), BF16_STEP_RTOL,
+            BF16_STEP_ATOL)
+    if got.fmt.is_float:
+        out["vs_cpu_bf16_step_excess"] = max(
+            rel_excess(got.planes[k], want.planes[k], BF16_STEP_RTOL,
+                       BF16_STEP_ATOL) for k in want.planes)
+    else:
+        out["max_lsb_vs_cpu_bf16"] = planes_lsb(got, want)
+        check(out["max_lsb_vs_cpu_bf16"] <= BF16_STEP_LSB,
+              f"{spec} vs CPU bf16: {out['max_lsb_vs_cpu_bf16']} LSB")
+    for key in ("last_output_vs_cpu_bf16_step_excess",
+                "vs_cpu_bf16_step_excess"):
+        check(out.get(key, 0.0) <= 1.0,
+              f"{spec} vs CPU bf16: {out.get(key)} x the one-bf16-step "
+              f"bound (rtol {BF16_STEP_RTOL}, atol {BF16_STEP_ATOL})")
+    return out
 
 
 def _head(fb, n: int):
@@ -1870,10 +1945,13 @@ def infer_models(rgb224):
     sr3x, classify (on the pipeline's 224^2 input), pose (120^2), luma
     sr2x (32 x 540x960), luma and 3-channel DnCNN (32 x 1080p).  Each is
     checked on INFER_MODEL_CPU_FRAMES frames (the 1080p sources cut to
-    INFER_CUT) against the port's CPU fp32 run with the same weights:
-    fp32 float outputs and last_output within INFER_RTOL / INFER_ATOL,
-    fp32 u8 planes within 1 LSB (a rounding edge), bf16 within the JAX
-    bf16 bound; then timed on the whole source."""
+    INFER_CUT) against the port's CPU runs with the same weights: fp32
+    float outputs and last_output within INFER_RTOL / INFER_ATOL of the
+    CPU's fp32, fp32 u8 planes within 1 LSB (a rounding edge); bf16
+    within the JAX bf16 bound of the CPU's fp32 and within one bf16 step
+    (BF16_STEP_RTOL / BF16_STEP_ATOL on floats and last_output,
+    BF16_STEP_LSB on u8 planes) of the CPU's bf16; then timed on the
+    whole source."""
     from gmat_tpu_torch.filters.graph import FilterGraph
     from gmat_tpu_torch.ops import csc, fused
     t_phase = time.perf_counter()
@@ -1891,7 +1969,7 @@ def infer_models(rgb224):
         probe = (cut_batch(fb, n, *INFER_CUT) if src == "yuv1080"
                  else _head(fb, n))
         probe_cpu = head_cpu(probe, n)
-        res, cpu32 = {}, None
+        res, cpu = {}, {}
         for prec in ("fp32", "bf16"):
             pspec = spec if prec == "bf16" else spec + ":precision=fp32"
             g = FilterGraph(pspec)
@@ -1899,11 +1977,13 @@ def infer_models(rgb224):
             torch.cuda.synchronize()
             check(on_card(got), f"{pspec}: output off the card")
             vec = g.filters[-1].last_output
-            if prec == "fp32":      # the CPU reference: fp32 only
-                gc = FilterGraph(pspec)
-                cpu32 = (gc.process(probe_cpu)[0], gc.filters[-1].last_output)
-            want, vec_cpu = cpu32
+            gc = FilterGraph(pspec)
+            cpu[prec] = (gc.process(probe_cpu)[0],
+                         gc.filters[-1].last_output)
+            want, vec_cpu = cpu["fp32"]
             entry = {}
+            if prec == "bf16":
+                entry.update(bf16_step(pspec, got, vec, *cpu["bf16"]))
             if vec is not None:
                 vec, vec_cpu = torch.as_tensor(vec), torch.as_tensor(vec_cpu)
                 check(tuple(vec.shape) == tuple(vec_cpu.shape)
@@ -2158,11 +2238,15 @@ def jpeg_still(src):
          phase_s=time.perf_counter() - t_phase)
 
 
-def stills_av(tmp):
+def stills_av(tmp, src):
     """The still paths that need libav*, where the host runtime can be
     built: overlay=path= with a .jpg written by av/jpeg.py on a 1080p
-    batch, card against CPU (0 LSB), and gmat-extract's JPEG output on the
-    card, bytes equal to device="cpu"; otherwise say why not."""
+    batch, card against CPU (0 LSB); gmat-extract's JPEG output on the
+    card, bytes equal to device="cpu"; a 1080p frame the card's graph
+    made through heif.encode_still and decode_still, planes and bytes
+    equal to the CPU's round trip; the CLI's .heic and .jpg sinks on 4
+    frames of the ABR source, bytes equal to the CPU run's; otherwise say
+    why not."""
     if not av_precondition("stills_av"):
         return None
     from gmat_tpu_torch.apps import extract
@@ -2195,9 +2279,216 @@ def stills_av(tmp):
           and outs["cuda"] == outs["cpu"],
           f"gmat-extract JPEG: {len(outs['cuda'])} files on the card, "
           "bytes equal to the CPU's: " + str(outs["cuda"] == outs["cpu"]))
+    # HEIF: a card-made 1080p frame round trip, against the CPU's
+    from gmat_tpu_torch.av import heif
+    blobs, planes = {}, {}
+    for dev, x in (("cuda", fb), ("cpu", head_cpu(fb, fb.batch))):
+        g, _ = FilterGraph(STILLS_HEIF_GRAPH).process(x)
+        yuv = [g.planes[k][0].cpu().numpy() for k in "yuv"]
+        blobs[dev] = heif.encode_still(*yuv, crf=STILLS_HEIF_CRF)
+        planes[dev] = heif.decode_still(blobs[dev])
+    check(blobs["cuda"] == blobs["cpu"]
+          and all(np.array_equal(a, b) for a, b in zip(planes["cuda"],
+                                                        planes["cpu"])),
+          "stills_av HEIF round trip: bytes or planes differ from the CPU's")
+    sinks = {}
+    for ext in ("heic", "jpg"):
+        for dev in ("cuda", "cpu"):
+            d = os.path.join(tmp, f"{ext}_{dev}")
+            cli_run(["-i", src, "-vf", STILLS_HEIF_GRAPH, "-o",
+                     f"s_%d.{ext}", "-frames", "4", "-batch", "4"], dev, d)
+            sinks[ext, dev] = [
+                open(os.path.join(d, f"s_{i}.{ext}"), "rb").read()
+                for i in range(4)]
+        check(sinks[ext, "cuda"] == sinks[ext, "cpu"], f"stills_av CLI "
+              f".{ext} sink: bytes differ from the CPU run's")
     emit("stills_av", run=True, overlay_path_max_lsb_vs_cpu=err,
-         extract_jpegs=len(outs["cuda"]), extract_bytes_equal_cpu=True)
+         extract_jpegs=len(outs["cuda"]), extract_bytes_equal_cpu=True,
+         heif_bytes=len(blobs["cuda"]), heif_equal_cpu=True,
+         cli_heic_stills=len(sinks["heic", "cuda"]),
+         cli_jpg_stills=len(sinks["jpg", "cuda"]), cli_bytes_equal_cpu=True)
     return err
+
+
+class GraphDevices:
+    """While active, every FilterGraph records the device of each batch it
+    returns (the CLI builds its graph inside main())."""
+
+    def __enter__(self):
+        from gmat_tpu_torch.filters import graph
+        self.module, self.real, self.seen = graph, graph.FilterGraph, []
+        seen = self.seen
+
+        class Recording(self.real):
+            def process(self, fb, **kw):
+                out, keep = super().process(fb, **kw)
+                seen.append(out.device.type)
+                return out, keep
+        graph.FilterGraph = Recording
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.module.FilterGraph = self.real
+
+
+def cli_run(argv, device, workdir):
+    """apps.cli.main on argv with its output under workdir: (exit code,
+    frames in, frames out, the CLI's fps, wall seconds, devices of the
+    graph's output batches)."""
+    from gmat_tpu_torch.apps import cli
+    os.makedirs(workdir, exist_ok=True)
+    argv = list(argv)
+    i = argv.index("-o") + 1
+    if argv[i] != "null":
+        argv[i] = os.path.join(workdir, argv[i])
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with GraphDevices() as seen, contextlib.redirect_stderr(err):
+        rc = cli.main(argv, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = re.search(r"gmat: (\d+) frames in, (\d+) frames out, ([\d.]+)s, "
+                  r"([\d.]+) fps", err.getvalue())
+    check(rc == 0 and m is not None, f"gmat {argv}: rc {rc}, "
+          f"{err.getvalue()[-400:]}")
+    return (rc, int(m.group(1)), int(m.group(2)), float(m.group(4)), wall,
+            seen)
+
+
+def cli_counts(argv, total: int, batch: int):
+    """(frames in, frames out) as the JAX CLI counts them: every frame of
+    each batch it reads, up to -frames out."""
+    frames = int(argv[argv.index("-frames") + 1]) if "-frames" in argv else 0
+    if not frames:
+        return total, total
+    return min(total, -(-frames // batch) * batch), min(frames, total)
+
+
+def y4m_frames(path: str, n: int):
+    from gmat_tpu_torch.av.rawvideo import Y4MReader
+    rd = Y4MReader(path)
+    try:
+        return [f[:3] for _, f in zip(range(n), rd.frames())]
+    finally:
+        rd.close()
+
+
+def np_lsb(a, b) -> int:
+    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+
+
+def trace_kernels(path: str) -> dict:
+    """CUDA kernel events of a Chrome trace: count and summed time, over
+    the span of all events."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    timed = [e for e in events if "ts" in e and "dur" in e]
+    span = (max(e["ts"] + e["dur"] for e in timed)
+            - min(e["ts"] for e in timed)) / 1e3 if timed else 0.0
+    return {"kernel_events": len(kern),
+            "kernel_ms": sum(e.get("dur", 0) for e in kern) / 1e3,
+            "memcpy_events": sum(1 for e in events
+                                 if e.get("cat") == "gpu_memcpy"),
+            "trace_span_ms": span, "trace_events": len(events)}
+
+
+def cli_phase(src, tmp):
+    """The gmat CLI as a user runs it, on the 96-frame 1080p ABR source:
+    scale + unsharp to 720p Y4M; the tensorrt doc pipeline, 540p -> sr2x ->
+    1080p Y4M in bf16 and fp32; the user guide's nvcv pipeline to PNG
+    stills; 224^2 rgbpf32 into the null sink under a torch.profiler trace.
+    Each run: frames in and out as the JAX CLI counts them, every graph
+    output batch on the card, frames/s; its CPU run on CLI_CPU_FRAMES
+    frames against the card's first frames (the stills' bytes equal
+    wherever their planes are); the trace holds CUDA kernels.  Returns
+    the launches of each kernel over the card's runs."""
+    from gmat_tpu_torch.ops import ladder, rungs
+    from gmat_tpu_torch.utils import tracing
+    from gmat_tpu_torch.utils.png import read_png
+    t_phase = time.perf_counter()
+    runs, launches = {}, {}
+    for name, args in CLI_RUNS:
+        card_dir = os.path.join(tmp, f"cli_{name}_card")
+        zero_counts(ladder)
+        zero_counts(rungs)
+        trace = None
+        if name == "null_224":
+            tracing.start_trace(os.path.join(tmp, "cli_trace"))
+        try:
+            _rc, n_in, n_out, cli_fps, wall, seen = cli_run(
+                ["-i", src, "-batch", str(ABR_BATCH)] + args, "cuda",
+                card_dir)
+        finally:
+            if name == "null_224":
+                trace = trace_kernels(tracing.stop_trace())
+        for k, v in {**ladder.LAUNCHES, **rungs.LAUNCHES}.items():
+            launches[k] = launches.get(k, 0) + v
+        want = cli_counts(args, ABR_FRAMES, ABR_BATCH)
+        check((n_in, n_out) == want, f"cli {name}: {n_in} in, {n_out} "
+              f"out, want {want}")
+        check(seen and all(d == "cuda" for d in seen),
+              f"cli {name}: graph outputs on {sorted(set(seen))}")
+        entry = {"argv": args, "frames_in": n_in, "frames_out": n_out,
+                 "cli_fps": cli_fps, "wall_s": wall,
+                 "frames_per_s": n_in / wall, "batches": len(seen)}
+        if trace is not None:
+            check(trace["kernel_events"] >= 1,
+                  f"cli {name}: the trace holds no CUDA kernel: {trace}")
+            entry["trace"] = trace
+            entry["kernel_busy_share"] = trace["kernel_ms"] / (wall * 1e3)
+            runs[name] = entry
+            continue
+        cpu_dir = os.path.join(tmp, f"cli_{name}_cpu")
+        cut = args[:args.index("-frames")] if "-frames" in args else args
+        _rc, c_in, c_out, _fps, cpu_wall, cpu_seen = cli_run(
+            ["-i", src] + cut + ["-frames", str(CLI_CPU_FRAMES),
+                                 "-batch", str(CLI_CPU_FRAMES)],
+            "cpu", cpu_dir)
+        check((c_in, c_out) == (CLI_CPU_FRAMES, CLI_CPU_FRAMES)
+              and all(d == "cpu" for d in cpu_seen),
+              f"cli {name} on the CPU: {c_in} in, {c_out} out, {cpu_seen}")
+        entry["cpu_wall_s"] = cpu_wall
+        out = args[args.index("-o") + 1]
+        if out.endswith(".y4m"):
+            card = y4m_frames(os.path.join(card_dir, out), CLI_CPU_FRAMES)
+            cpu = y4m_frames(os.path.join(cpu_dir, out), CLI_CPU_FRAMES)
+            check(len(card) == len(cpu) == CLI_CPU_FRAMES
+                  and all(a.shape == b.shape for fa, fb in zip(card, cpu)
+                          for a, b in zip(fa, fb)),
+                  f"cli {name}: frames or shapes differ from the CPU's")
+            err = max(np_lsb(a, b) for fa, fb in zip(card, cpu)
+                      for a, b in zip(fa, fb))
+            tol = BF16_STEP_LSB if name == "sr2x_bf16" else CLI_LSB
+            check(err <= tol, f"cli {name} vs CPU: {err} LSB > {tol}")
+            entry.update(max_lsb_vs_cpu=err, out_shape=list(card[0][0].shape))
+        else:
+            # the stills: planes within CLI_LSB of the CPU's, bytes equal
+            # wherever the planes are
+            errs, same = [], []
+            for i in range(CLI_CPU_FRAMES):
+                blobs = [open(os.path.join(d, out % i), "rb").read()
+                         for d in (card_dir, cpu_dir)]
+                a, b = (read_png(x) for x in blobs)
+                check(a.shape == b.shape, f"cli {name}: still {i} shape")
+                errs.append(np_lsb(a, b))
+                same.append(blobs[0] == blobs[1])
+                check(same[-1] or errs[-1] > 0, f"cli {name}: still {i} "
+                      "bytes differ from the CPU's on equal planes")
+            check(max(errs) <= CLI_LSB,
+                  f"cli {name} stills vs CPU: {max(errs)} LSB")
+            n_files = len(os.listdir(card_dir))
+            check(n_files == n_out, f"cli {name}: {n_files} stills")
+            entry.update(max_lsb_vs_cpu=max(errs), bytes_equal=same,
+                         stills=n_files, still_shape=list(a.shape))
+        runs[name] = entry
+        shutil.rmtree(card_dir, ignore_errors=True)
+        shutil.rmtree(cpu_dir, ignore_errors=True)
+    emit("cli", run=True, source=[ABR_FRAMES, H, W], batch=ABR_BATCH,
+         cpu_frames=CLI_CPU_FRAMES, runs=runs, launches=launches,
+         phase_s=time.perf_counter() - t_phase)
+    return launches
 
 
 def main() -> None:
@@ -2470,6 +2761,7 @@ def main() -> None:
         ivtc = abr_ivtc(rungs, src, tmp, LADDER_1080_I8, abr_i8["fps"])
         enhance = abr_enhance(rungs, src, LADDER_1080_I8, abr_i8["fps"])
         jpeg_still(src)
+        cli_launches = cli_phase(src, tmp)
         rung_src = [tuple(b[0].planes[k] for k in "yuv")
                     for b in abr["batches"][:2]]
         for b in abr["batches"] + abr_i8["batches"]:
@@ -2558,7 +2850,7 @@ def main() -> None:
         scene_ms = scene_phase(src)
         metrans_session(src, tmp)
         smart_decode(tmp)
-        stills_av(tmp)
+        stills_av(tmp, src)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2751,6 +3043,8 @@ def main() -> None:
         row("ladder_p010", "ladder_p010", 734, "_ladder_p010_kernel",
             wire_counts["ladder_p010"], errs_wire["ladder_p010"]),
     ]
+    for r in kernels:   # launches over the cli phase's card runs
+        r["launches_cli"] = cli_launches[r["name"].split()[0]]
     emit("elapsed", seconds=time.perf_counter() - t_start)
     print(smi)
     print(json.dumps({"kernels": kernels}))

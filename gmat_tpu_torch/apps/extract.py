@@ -14,7 +14,6 @@ the coefficients on the device, Huffman coding on the host) or raw
 from __future__ import annotations
 
 import argparse
-import re
 import sys
 import time
 
@@ -22,21 +21,7 @@ from ..av import jpeg_tpu
 from ..av.extractor import FrameExtractor, FrameSelect
 from ..av.rawvideo import Y4MWriter
 from ..core.frame import from_numpy_yuv420
-
-
-def still_pattern(output: str):
-    """(has_explicit_pattern, safe_pattern) for a still-sequence output:
-    ffmpeg-style %d / %0Nd patterns (every OTHER literal % escaped so
-    `pattern % n` cannot fail), else base_%d.ext.  The JAX CLI's helper
-    (gmat_tpu/apps/cli.py:26-39), which gmat-extract shares."""
-    m = re.search(r"%0?\d*d", output)
-    if m:
-        pre = output[:m.start()].replace("%", "%%")
-        post = output[m.end():].replace("%", "%%")
-        return True, pre + m.group(0) + post
-    base, dot, ext = output.rpartition(".")
-    return False, (base.replace("%", "%%") + "_%d" + dot
-                   + ext.replace("%", "%%"))
+from .cli import still_pattern
 
 
 def main(argv=None, device="cuda"):

@@ -7,11 +7,13 @@ models' numerics: inputs cast to the weight dtype, products accumulated
 in f32, the bias (and ReLU) in f32, the result rounded back to the
 weight dtype (bf16 params give the bf16 lane).
 
-f32 convolutions never run in TF32: every layer runs under
+f32 convolutions never run in TF32: every fp32 layer runs under
 `torch.backends.cudnn.flags(allow_tf32=False)` (the global flags are left
-alone).  On the CPU a bf16 layer convolves the bf16 values in f32
-(exact products, f32 sums); on the card cuDNN convolves bf16 with f32
-accumulation and rounds to bf16 before the f32 bias.
+alone).  A bf16 layer convolves the bf16 values in f32 (exact products,
+f32 sums), adds the f32 bias and rounds once, as XLA does.  On the card
+it does so in TF32: a bf16 value has 7 stored mantissa bits and TF32 10,
+so TF32's input rounding leaves the operands as they are, and the
+tensor cores multiply them exactly and sum in f32.
 """
 from __future__ import annotations
 
@@ -24,9 +26,10 @@ import torch.nn.functional as F
 
 
 @contextlib.contextmanager
-def exact_f32():
-    """cuDNN on, TF32 off, for the convolutions inside the block."""
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+def exact_f32(tf32: bool = False):
+    """cuDNN on, TF32 off (or on, for operands that TF32 holds exactly),
+    for the convolutions inside the block."""
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
         yield
 
 
@@ -102,13 +105,14 @@ def conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     else:
         x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
         padding = (0, 0)
-    with exact_f32():
-        if x.is_cuda or w.dtype == torch.float32:
+    if w.dtype == torch.float32:
+        with exact_f32():
             out = F.conv2d(x, w, stride=stride, padding=padding)
-        else:   # bf16 on the host: the bf16 values convolved in f32
+    else:   # the bf16 values convolved in f32 (TF32 on the card)
+        with exact_f32(tf32=x.is_cuda):
             out = F.conv2d(x.float(), w.float(), stride=stride,
                            padding=padding)
-    out = out.float() + b.float()[None, :, None, None]
+    out = out + b.float()[None, :, None, None]
     if relu:
         out = torch.relu(out)
     return out.to(w.dtype)

@@ -47,7 +47,10 @@ def test_import_pulls_in_no_jax():
         "gmat_tpu_torch.filters.infer, gmat_tpu_torch.ops.dct, "
         "gmat_tpu_torch.ops.overlay, gmat_tpu_torch.av.jpeg_tpu, "
         "gmat_tpu_torch.av.jpeg, gmat_tpu_torch.utils.png, "
-        "gmat_tpu_torch.utils.hostpool\n"
+        "gmat_tpu_torch.utils.hostpool, gmat_tpu_torch.av.hevc, "
+        "gmat_tpu_torch.av.heif, gmat_tpu_torch.utils.tracing, "
+        "gmat_tpu_torch.utils.compile_cache, gmat_tpu_torch.apps.cli, "
+        "gmat_tpu_torch.apps.scan, gmat_tpu_torch.bindings\n"
         "bad = [m for m in sys.modules if m.startswith('jax') "
         "or m == 'gmat_tpu' or m.startswith('gmat_tpu.')]\n"
         "print(bad)\n"
