@@ -16,9 +16,11 @@ filtered ABR path (common graph -> ladder -> rung graphs), a 10-bit
 PQ file through the HDR10 -> SDR chain as the common graph, a
 telecined file through inverse telecine as the common graph, and its
 first batch through a DnCNN as the common graph and through the JPEG
-still codec; and the whole file through the gmat CLI as a user runs it
--- and holds every kernel against its plain PyTorch version on the
-card:
+still codec; the whole file through the gmat CLI as a user runs it; the
+main path sharded over device meshes and across processes, a
+shared-memory ring from a producer process, the gmat-perf harness and
+the audio filter chain -- and holds every kernel against its plain
+PyTorch version on the card:
 
   device           card name, compute capability, power limit, kernel build
   main_path        K1 (ladder_i8) through preprocess_nchw, quality gate vs
@@ -124,6 +126,32 @@ card:
                    JPEG output, a HEIF round trip of a card-made 1080p
                    frame and the CLI's .heic and .jpg sinks on the card
                    against the CPU, where libavcodec exists
+  scale_out        parallel/: ShardedPipeline(preprocess_nchw) on the 64 x
+                   1080p batch over a (1, 1) and a (2, 2) mesh of cuda:0,
+                   0 LSB from the unsharded call, one ladder_i8 a data
+                   row; over (2, 2) the 10-bit batch (ladder_bf16) and
+                   the ABR rung ladders (rungs_i8, rungs_bf16), 0 LSB;
+                   tensor-parallel ESPCN x2 (fp32) on 32 x 224^2 over
+                   (2, 2) within TP_ATOL of the unsharded model; the
+                   distributed self-test (ladder at 1080p, one dp x tp
+                   train step) in a group of one on NCCL and as two
+                   processes on gloo, equal losses
+  shm_ring         a producer process writes 96 x 1080p I420 frames into a
+                   ShmRing; batches go through pinned buffers to the card
+                   and preprocess_nchw (one ladder_i8 a batch); every frame
+                   bit-equal (checked on the card), frames/s, the
+                   producer's put span; the decode workers where
+                   libavcodec exists
+  perf             gmat-perf (apps/perf.main, device="cuda"): ladder,
+                   ladder10, rungs, infer, graph, sustained, jpeg at its
+                   1080p defaults and pipeline on the ABR source, each
+                   case's JSON line and the launches counted while it ran
+                   (each case's kernels launched); the libav* cases where
+                   libavcodec exists
+  audio            AudioFilterStream over 10 s of seeded 48 kHz stereo
+                   PCM: atempo, volume, afade, aecho, loudnorm, dynaudnorm
+                   (loudnorm between two aresample stages where
+                   libswresample is missing), samples/s and a checksum
   timing           CUDA-event medians: kernel, plain version, library call,
                    separate-op path; for the ladder, wire and rung kernels
                    also the wrapper's device and host time and the ptxas
@@ -470,6 +498,29 @@ def lsb(a: torch.Tensor, b: torch.Tensor) -> float:
 def zero_counts(ladder) -> None:
     for k in ladder.LAUNCHES:
         ladder.LAUNCHES[k] = 0
+    ladder.LAUNCHES_BY_SOURCE.clear()
+
+
+# The K3 and K5 rows: the port's ladder_i8 and rungs_i8 kernels take
+# every source size, so these rows count the launches (from the wrappers'
+# LAUNCHES_BY_SOURCE) on the sources the TPU sends to its chunked kernels:
+# frames of more than 24 MiB of samples (`_pick_w_chunks`,
+# pallas_kernels.py:1346), and 4K or larger sources (`rungs_fit_vmem`,
+# pallas_kernels.py:1138, refuses a 4K rung ladder).
+K3_ROW, K5_ROW = "ladder_i8 (K3 at 8K)", "rungs_i8 (K5 at 4K)"
+K3_FRAME_BYTES = 24 * 1024 * 1024
+
+
+def wide_counts_of(module) -> dict:
+    """{row name: launches} of the K3 or K5 row since `zero_counts`."""
+    if "ladder_i8" in module.LAUNCHES:
+        return {K3_ROW: sum(n for (k, h, w), n
+                            in module.LAUNCHES_BY_SOURCE.items()
+                            if k == "ladder_i8"
+                            and h * w * 3 // 2 > K3_FRAME_BYTES)}
+    return {K5_ROW: sum(n for (k, h, w), n
+                        in module.LAUNCHES_BY_SOURCE.items()
+                        if k == "rungs_i8" and h * w >= 3840 * 2160)}
 
 
 def want_counts(module, **launched) -> dict:
@@ -2423,7 +2474,9 @@ def cli_phase(src, tmp):
         finally:
             if name == "null_224":
                 trace = trace_kernels(tracing.stop_trace())
-        for k, v in {**ladder.LAUNCHES, **rungs.LAUNCHES}.items():
+        for k, v in {**ladder.LAUNCHES, **rungs.LAUNCHES,
+                     **wide_counts_of(ladder),
+                     **wide_counts_of(rungs)}.items():
             launches[k] = launches.get(k, 0) + v
         want = cli_counts(args, ABR_FRAMES, ABR_BATCH)
         check((n_in, n_out) == want, f"cli {name}: {n_in} in, {n_out} "
@@ -2489,6 +2542,411 @@ def cli_phase(src, tmp):
          cpu_frames=CLI_CPU_FRAMES, runs=runs, launches=launches,
          phase_s=time.perf_counter() - t_phase)
     return launches
+
+
+# scale-out: the sharded main path over a (1, 1) and a (2, 2) mesh laid on
+# the one card, the tensor-parallel ESPCN over a (2, 2) mesh, then the
+# distributed self-test workloads in a process group of one (NCCL) and of
+# two processes on the card (gloo)
+SCALE_OUT_MESHES = ((1, 1), (2, 2))
+TP_BATCH, TP_ATOL = 32, 1e-4
+DRYRUN_TIMEOUT_S = 240
+# the shared-memory ring: a producer process fills a ring of 1080p I420
+# slots that the card's consumer drains in ABR_BATCH batches
+SHM_FRAMES, SHM_SLOTS = 96, 8
+# gmat-perf: the device cases (kernels they must launch), then the libav*
+# cases, run where libavcodec exists on the smart-decode clip
+PERF_CASES = (("ladder", ("ladder_bf16",)), ("ladder10", ("ladder_bf16",)),
+              ("rungs", ("rungs_i8", "rungs_bf16")),
+              ("infer", ("ladder_i8",)), ("graph", ("rungs_i8",)),
+              ("sustained", ("ladder_i8",)), ("jpeg", ()),
+              ("pipeline", ("ladder_i8",)))
+PERF_AV_CASES = ("decode", "encode", "extract", "heif", "mjpeg", "mjpegdec",
+                 "ingest", "saturation")
+# the audio lane: 10 s of seeded 48 kHz stereo PCM through one chain
+AUDIO_RATE, AUDIO_SECONDS, AUDIO_BLOCK = 48000, 10, 4800
+AUDIO_CHAIN = ("atempo=1.25", "volume=0.8", "afade=t=in:d=1",
+               "aecho=0.8:0.9:40:0.4", "loudnorm", "dynaudnorm")
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def scale_out_phase(bufs, fb10):
+    """parallel/: ShardedPipeline(preprocess_nchw) on the 64 x 1080p batch
+    over a (1, 1) and a (2, 2) mesh of cuda:0, equal to the unsharded call
+    with one ladder_i8 launch per data row; over (2, 2) the 10-bit batch
+    (one ladder_bf16 a row) and the ABR rung ladders of the first 32
+    frames (`metrans.ladder_step`: 720p/360p, one rungs_i8 a row;
+    720p/540p/360p, one rungs_bf16 a row), each equal to its unsharded
+    call; the tensor-parallel ESPCN x2
+    (fp32, the bundled weights) on 32 x 224^2 over a (2, 2) mesh against
+    the unsharded model; the self-test's ladder workload at 1080p and one
+    dp x tp train step in a process group of one (NCCL); both again as two
+    processes on the card (gloo, which stages collectives through the
+    host: NCCL refuses two ranks on one card).  Returns the launches of
+    each kernel over the in-process runs."""
+    from gmat_tpu_torch.apps.metrans import ladder_step
+    from gmat_tpu_torch.filters.infer import InferFilter
+    from gmat_tpu_torch.models import sr
+    from gmat_tpu_torch.ops import fused, ladder, rungs
+    from gmat_tpu_torch.parallel import distributed as dist
+    from gmat_tpu_torch.parallel import mesh as pm
+    from gmat_tpu_torch.parallel.pipeline import ShardedPipeline
+    t_phase = time.perf_counter()
+    card = torch.device("cuda", 0)
+    launches = {}
+    single = fused.preprocess_nchw(bufs[0], OUT, OUT)
+    single_ms = event_ms(lambda i: fused.preprocess_nchw(bufs[i % 2], OUT,
+                                                         OUT))[0]
+    meshes = {}
+    for n_data, n_model in SCALE_OUT_MESHES:
+        mesh = pm.make_mesh(n_data, n_model, [card] * (n_data * n_model))
+        pipe = ShardedPipeline(lambda b: fused.preprocess_nchw(b, OUT, OUT),
+                               mesh)
+        zero_counts(ladder)
+        got = pipe(bufs[0])
+        torch.cuda.synchronize()
+        counts = dict(ladder.LAUNCHES)
+        add_counts(launches, counts)
+        add_counts(launches, wide_counts_of(ladder))
+        check(counts == want_counts(ladder, ladder_i8=n_data),
+              f"sharded {n_data}x{n_model} launches {counts}")
+        err = lsb(got, single)
+        check(tuple(got.shape) == tuple(single.shape) and err == 0,
+              f"sharded {n_data}x{n_model} vs unsharded: {err} LSB")
+        ms = event_ms(lambda i: pipe(bufs[i % 2]), calls=5, reps=5)[0]
+        meshes[f"{n_data}x{n_model}"] = {
+            "launches": counts, "max_lsb_vs_unsharded": err, "ms": ms,
+            "frames_per_s": N / ms * 1e3}
+
+    # K2 and K4 over the (2, 2) mesh: the 10-bit batch and a rung ladder
+    mesh = pm.make_mesh(2, 2, [card] * 4)
+    fb_abr = bufs[0].with_planes({k: v[:ABR_BATCH]
+                                  for k, v in bufs[0].planes.items()})
+    for name, fb, fn, kname, module in (
+            ("10bit_2x2", fb10, lambda b: fused.preprocess_nchw(b, OUT, OUT),
+             "ladder_bf16", ladder),
+            ("rungs_2x2", fb_abr, lambda b: ladder_step(b, LADDER_1080_I8),
+             "rungs_i8", rungs),
+            ("rungs_bf16_2x2", fb_abr, lambda b: ladder_step(b, LADDER_1080),
+             "rungs_bf16", rungs)):
+        pipe = ShardedPipeline(fn, mesh)
+        want = fn(fb)
+        zero_counts(module)
+        got = pipe(fb)
+        torch.cuda.synchronize()
+        counts = dict(module.LAUNCHES)
+        add_counts(launches, counts)
+        add_counts(launches, wide_counts_of(module))
+        check(counts == want_counts(module, **{kname: 2}),
+              f"sharded {name} launches {counts}")
+        if module is rungs:
+            err = max(rung_lsb(g.planes[k], w.planes[k])
+                      for g, w in zip(got, want) for k in "yuv")
+        else:
+            err = lsb(got, want)
+        check(err == 0, f"sharded {name} vs unsharded: {err} LSB")
+        ms = event_ms(lambda i: pipe(fb), calls=5, reps=5)[0]
+        meshes[name] = {"launches": counts, "max_lsb_vs_unsharded": err,
+                        "ms": ms, "unsharded_ms": event_ms(
+                            lambda i: fn(fb), calls=5, reps=5)[0]}
+
+    params = InferFilter(model="sr2x", precision="fp32").params_on(card)
+    x = single[:TP_BATCH]
+    placed = pm.shard_sr_params(params, mesh)
+
+    def tp(xx):
+        parts = torch.chunk(xx, 2)
+        return torch.cat([pm.sr_apply_tp(placed[r], parts[r])
+                          for r in range(2)])
+    got, want = tp(x), sr.apply(params, x)
+    tp_err = float((got - want).abs().max())
+    check(tuple(got.shape) == (TP_BATCH, 3, 2 * OUT, 2 * OUT)
+          and bool(torch.isfinite(got).all()) and tp_err <= TP_ATOL,
+          f"tensor-parallel sr2x vs unsharded: {tp_err}")
+    tp_ms = event_ms(lambda i: tp(x), calls=3, reps=5)[0]
+    full_ms = event_ms(lambda i: sr.apply(params, x), calls=3, reps=5)[0]
+
+    # the self-test workloads in a process group of one, on NCCL
+    argv = ["--selftest-worker", "--coordinator", "in-process",
+            "--num-processes", "1", "--process-id", "0",
+            "--devices-per-host", "4", "--platform", "cuda",
+            "--height", str(H), "--width", str(W), "--out-size", str(OUT)]
+    args = dist.worker_args(argv)
+    dist.init_distributed(f"127.0.0.1:{dist.free_port()}", 1, 0,
+                          local_device_count=4, platform="cuda",
+                          timeout=DRYRUN_TIMEOUT_S)
+    nccl = {}
+    try:
+        check(torch.distributed.get_backend() == "nccl", "backend")
+        for workload in ("ladder", "train"):
+            args.workload = workload
+            zero_counts(ladder)
+            t0 = time.perf_counter()
+            rec = dist.run_workload(args)
+            torch.cuda.synchronize()
+            counts = dict(ladder.LAUNCHES)
+            add_counts(launches, counts)
+            add_counts(launches, wide_counts_of(ladder))
+            check(counts["ladder_i8"] + counts["ladder_bf16"] >= 2
+                  and np.isfinite(rec["loss"]),
+                  f"NCCL {workload}: {rec}, launches {counts}")
+            nccl[workload] = {**rec, "launches": counts,
+                              "wall_s": time.perf_counter() - t0}
+    finally:
+        dist.shutdown()
+
+    # two processes on one card: NCCL refuses that, so the group is gloo
+    gloo = {}
+    for workload, extra in (("train", []),
+                            ("ladder", ["--height", str(H), "--width",
+                                        str(W), "--out-size", str(OUT)])):
+        t0 = time.perf_counter()
+        recs = dist.dryrun_multihost(2, 2, timeout=DRYRUN_TIMEOUT_S,
+                                     workload=workload, platform="cuda",
+                                     extra_args=extra)
+        check(all(r["backend"] == "gloo" for r in recs),
+              f"two ranks on one card: backend {recs}")
+        gloo[workload] = {"records": recs,
+                          "wall_s": time.perf_counter() - t0}
+    check(gloo["train"]["records"][0]["loss"]
+          == gloo["train"]["records"][1]["loss"], "gloo losses differ")
+    emit("scale_out", meshes=meshes, unsharded_ms=single_ms,
+         tensor_parallel={"batch": TP_BATCH, "mesh": [2, 2],
+                          "max_abs_err_vs_unsharded": tp_err, "ms": tp_ms,
+                          "unsharded_ms": full_ms},
+         nccl_world_1=nccl, gloo_2_ranks=gloo, launches=launches,
+         phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def ring_base(w: int, h: int, seed: int):
+    """The shared-memory phase's base frame: frame i is it plus i (mod
+    256), so the card can check every sample without a host copy."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (h, w)).astype(np.uint8),
+            rng.integers(0, 256, (h // 2, w // 2)).astype(np.uint8),
+            rng.integers(0, 256, (h // 2, w // 2)).astype(np.uint8))
+
+
+def ring_producer(name: str, w: int, h: int, slots: int, n: int,
+                  seed: int, span) -> None:
+    """A spawned process: writes n I420 frames into the ring `name`, and
+    the wall-clock times of its first and last put into `span`."""
+    from gmat_tpu_torch.av.shm_ring import ShmRing
+    ring = ShmRing(w, h, slots, name=name, create=False)
+    try:
+        base = ring_base(w, h, seed)
+        span[0] = time.time()
+        for i in range(n):
+            ring.put(*(p + np.uint8(i % 256) for p in base), pts=i)
+        span[1] = time.time()
+        ring.set_eof()
+    except BaseException as e:
+        ring.set_error(f"{type(e).__name__}: {e}")
+        raise
+    finally:
+        ring.close()
+
+
+def shm_ring_phase(tmp):
+    """av/shm_ring: a producer process writes SHM_FRAMES synthetic 1080p
+    I420 frames into a ShmRing; this process batches them through pinned
+    buffers to the card (av/ingest) and runs preprocess_nchw (one
+    ladder_i8 a batch); every frame arrives bit-equal (checked on the
+    card), frames/s.  Then the decode workers (decode_stream_multiproc,
+    two libx264 decode processes) where libavcodec exists.  Returns the
+    launches of each kernel."""
+    import multiprocessing
+    from gmat_tpu_torch.av import ingest
+    from gmat_tpu_torch.av.shm_ring import ShmRing, decode_stream_multiproc
+    from gmat_tpu_torch.ops import fused, ladder
+    t_phase = time.perf_counter()
+    card = torch.device("cuda", 0)
+    ring = ShmRing(W, H, SHM_SLOTS)
+    ctx = multiprocessing.get_context("spawn")
+    span = ctx.Array("d", 2)
+    t_wall = time.time()
+    proc = ctx.Process(target=ring_producer, args=(
+        ring.name, W, H, SHM_SLOTS, SHM_FRAMES, SEED, span), daemon=True)
+    proc.start()
+    base = [torch.from_numpy(p).to(card) for p in ring_base(W, H, SEED)]
+
+    def frames():
+        deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+        while time.monotonic() < deadline:
+            item = ring.get_nowait()
+            if item is not None:
+                yield item
+                continue
+            if ring.eof and ring.empty():
+                check(ring.error is None, f"ring producer: {ring.error}")
+                return
+            check(proc.is_alive() or not ring.empty() or ring.eof,
+                  f"ring producer died (exitcode {proc.exitcode})")
+            time.sleep(0.001)
+        check(False, "ring producer timed out")
+
+    try:
+        q = ingest._queue(frames(), ABR_BATCH, 3, card, W, H, "bt709",
+                          "yuv420p")
+        zero_counts(ladder)
+        n, bad, batches, t_first, arrivals = 0, 0, 0, None, []
+        try:
+            for fb, pts, valid in q:
+                arrivals.append(time.time() - t_wall)
+                if t_first is None:
+                    t_first = time.perf_counter()
+                out = fused.preprocess_nchw(fb, OUT, OUT)
+                idx = torch.as_tensor(pts[:valid] % 256,
+                                      device=card).to(torch.uint8)
+                for k, b in zip("yuv", base):
+                    want = b[None] + idx[:, None, None]
+                    bad += int((fb.planes[k][:valid] != want).flatten(1)
+                               .any(1).sum())
+                n += int(valid)
+                batches += 1
+            torch.cuda.synchronize()
+            t_last = time.perf_counter()
+        finally:
+            q.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_phase
+        counts = dict(ladder.LAUNCHES)
+    finally:
+        proc.join(timeout=30)
+        if proc.is_alive():
+            proc.kill()
+        ring.close(unlink=True)
+    check(n == SHM_FRAMES and bad == 0, f"ring: {n} frames, {bad} differ")
+    check(counts == want_counts(ladder, ladder_i8=batches),
+          f"ring launches {counts}")
+    check(tuple(out.shape[1:]) == (3, OUT, OUT)
+          and bool(torch.isfinite(out).all()), "ring ladder output")
+    workers = {"run": False, "why": "no libavcodec on this machine"}
+    if av_precondition("shm_ring_decode"):
+        clip = os.path.join(tmp, "ring.mp4")
+        smart_clip(clip)
+        got = 0
+        q = decode_stream_multiproc(clip, procs=2, batch=16, device=card)
+        try:
+            for fb, _pts, valid in q:
+                check(fb.device == card, "decode worker batch off the card")
+                got += int(valid)
+        finally:
+            q.close()
+        check(got == 2 * SMART_FRAMES, f"decode workers: {got} frames")
+        workers = {"run": True, "procs": 2, "frames": got}
+    emit("shm_ring", frames=n, batches=batches, bit_equal=bad == 0,
+         source=[SHM_FRAMES, H, W], slots=SHM_SLOTS, wall_s=wall,
+         frames_per_s=n / wall, producer_first_put_s=span[0] - t_wall,
+         producer_puts_s=span[1] - span[0],
+         producer_frames_per_s=SHM_FRAMES / max(span[1] - span[0], 1e-9),
+         batch_arrival_s=arrivals,
+         steady_frames_per_s=(n - ABR_BATCH) / max(t_last - t_first, 1e-9),
+         launches=counts, decode_workers=workers,
+         phase_s=time.perf_counter() - t_phase)
+    return counts
+
+
+def perf_phase(src, tmp):
+    """gmat-perf (apps/perf.main, device="cuda"): the device cases at the
+    harness's 1080p defaults, `pipeline` on the ABR source; each case's
+    JSON line and the kernel launches counted while it ran, every case's
+    kernels launched; the libav* cases where libavcodec exists (else run:
+    false).  Returns the launches of each kernel over the cases."""
+    from gmat_tpu_torch.apps import perf
+    from gmat_tpu_torch.ops import ladder, rungs
+    t_phase = time.perf_counter()
+    launches, cases = {}, {}
+    av = av_precondition("perf_av")
+    clip = os.path.join(tmp, "perf.mp4")
+    if av:
+        smart_clip(clip)
+    av_args = {"decode": ["-i", clip], "extract": ["-i", clip],
+               "ingest": ["-i", clip, "-procs", "2"],
+               "saturation": ["-i", clip, "-procs", "1"]}
+    small = ["-width", str(SMART_SIZE[0]), "-height", str(SMART_SIZE[1]),
+             "-frames", "16"]
+    runs = [(c, k, ["-i", src] if c == "pipeline" else [])
+            for c, k in PERF_CASES]
+    runs += [(c, (), av_args.get(c, small)) for c in PERF_AV_CASES]
+    for case, kernels, extra in runs:
+        if case in PERF_AV_CASES and not av:
+            cases[case] = {"run": False, "why": "no libavcodec"}
+            continue
+        zero_counts(ladder)
+        zero_counts(rungs)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = perf.main([case, *extra], device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in {**ladder.LAUNCHES, **rungs.LAUNCHES,
+                                    **wide_counts_of(ladder),
+                                    **wide_counts_of(rungs)}.items() if v}
+        add_counts(launches, counts)
+        rec = json.loads(out.getvalue().strip().splitlines()[-1])
+        check(rc == 0 and rec["case"] == case, f"perf {case}: rc {rc}")
+        check(all(counts.get(k, 0) > 0 for k in kernels),
+              f"perf {case}: launches {counts}, want {kernels}")
+        cases[case] = {"run": True, "result": rec, "launches": counts,
+                       "wall_s": wall}
+        emit("perf_case", case=case, result=rec, launches=counts,
+             wall_s=wall)
+    emit("perf", cases=sorted(cases), launches=launches,
+         av_cases={c: cases[c]["run"] for c in PERF_AV_CASES},
+         phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def audio_phase():
+    """The audio lane (av/audio_filters): AudioFilterStream over
+    AUDIO_SECONDS of seeded 48 kHz stereo PCM through atempo, volume,
+    afade, aecho, loudnorm and dynaudnorm, pushed in 100 ms blocks:
+    samples/s and a checksum of the output.  loudnorm runs at 192 kHz:
+    through libswresample where it loads, else between two aresample
+    stages (their linear lane)."""
+    import hashlib
+    from gmat_tpu_torch.av import audio_filters, swr
+    t_phase = time.perf_counter()
+    try:
+        swr._load()
+        have_swr = True
+    except OSError:
+        have_swr = False
+    chain = list(AUDIO_CHAIN)
+    if not have_swr:
+        i = chain.index("loudnorm")
+        chain[i:i + 1] = ["aresample=192000", "loudnorm",
+                          f"aresample={AUDIO_RATE}"]
+    rng = np.random.default_rng(SEED)
+    t = np.arange(AUDIO_RATE * AUDIO_SECONDS) / AUDIO_RATE
+    tone = 6000 * np.sin(2 * np.pi * 440 * t) * (1 + 0.5 * np.sin(
+        2 * np.pi * 0.3 * t))
+    pcm = np.stack([tone, 0.7 * tone], 1) + rng.normal(0, 400, (len(t), 2))
+    pcm = np.clip(pcm, -32768, 32767).astype(np.int16)
+    st = audio_filters.AudioFilterStream(",".join(chain), AUDIO_RATE)
+    t0 = time.perf_counter()
+    outs = [st.push(pcm[i:i + AUDIO_BLOCK])
+            for i in range(0, len(pcm), AUDIO_BLOCK)]
+    outs.append(st.flush())
+    dt = time.perf_counter() - t0
+    out = np.concatenate([o for o in outs if o.size])
+    want = len(pcm) / 1.25
+    check(out.dtype == np.int16 and out.shape[1] == 2
+          and abs(len(out) - want) < 0.02 * want and st.out_rate == AUDIO_RATE
+          and int(np.abs(out.astype(np.int32)).max()) > 0,
+          f"audio chain gave {out.shape} {out.dtype} at {st.out_rate}")
+    emit("audio", chain=",".join(chain), libswresample=have_swr,
+         seconds=AUDIO_SECONDS, rate=AUDIO_RATE, samples_in=len(pcm),
+         samples_out=len(out), samples_per_s=len(pcm) / dt, wall_s=dt,
+         sha256=hashlib.sha256(out.tobytes()).hexdigest(),
+         phase_s=time.perf_counter() - t_phase)
 
 
 def main() -> None:
@@ -2608,8 +3066,10 @@ def main() -> None:
     k57 = ladder.fused_ladder_i8(*p57, 32, 32)
     torch.cuda.synchronize()
     wide_counts = dict(ladder.LAUNCHES)
-    check(wide_counts == want_counts(ladder, ladder_i8=2),
-          f"wide phase launches {wide_counts}")
+    check(wide_counts == want_counts(ladder, ladder_i8=2)
+          and wide_counts_of(ladder) == {K3_ROW: 2},
+          f"wide phase launches {wide_counts}, "
+          f"by source {dict(ladder.LAUNCHES_BY_SOURCE)}")
     err_k3 = lsb(k3, ladder.fused_ladder_i8(*p8k, OUT, OUT, reference=True))
     err_57 = lsb(k57, ladder.fused_ladder_i8(*p57, 32, 32, reference=True))
     check(err_k3 <= LSB_I8 and err_57 <= LSB_I8,
@@ -2803,8 +3263,10 @@ def main() -> None:
         k5 = rungs.fused_rungs(*p4k, LADDER_4K, quant="i8")
         torch.cuda.synchronize()
         k5_counts = dict(rungs.LAUNCHES)
-        check(k5_counts == {"rungs_i8": 1, "rungs_bf16": 0},
-              f"4K launches {k5_counts}")
+        check(k5_counts == {"rungs_i8": 1, "rungs_bf16": 0}
+              and wide_counts_of(rungs) == {K5_ROW: 1},
+              f"4K launches {k5_counts}, "
+              f"by source {dict(rungs.LAUNCHES_BY_SOURCE)}")
         err_k5, exact_k5 = rung_errors(rungs, p4k, k5, LADDER_4K, "i8")
         near_sizes = ((640, 360), (320, 180))
         p720 = make(4, 720, 1280, 360, 640)
@@ -2851,6 +3313,10 @@ def main() -> None:
         metrans_session(src, tmp)
         smart_decode(tmp)
         stills_av(tmp, src)
+        scale_out_launches = scale_out_phase(bufs, fb10)
+        shm_launches = shm_ring_phase(tmp)
+        perf_launches = perf_phase(src, tmp)
+        audio_phase()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3026,7 +3492,7 @@ def main() -> None:
     kernels = [
         k1,
         k2,
-        row("ladder_i8 (K3 at 8K)", "ladder_i8_8k", 1230,
+        row(K3_ROW, "ladder_i8_8k", 1230,
             "_ladder_kernel_i8_chunked", wide_counts["ladder_i8"],
             max(err_k3, err_57)),
         # u8 outputs: the error is in u8 codes
@@ -3034,7 +3500,7 @@ def main() -> None:
         row("rungs_bf16", "rungs_bf16", 845, "_rungs_kernel",
             abr["counts"]["rungs_bf16"], max(abr["plain"], forced["bf16"]),
             "rungs.cu", max(abr["plain"], forced["bf16"])),
-        row("rungs_i8 (K5 at 4K)", "rungs_i8_4k", 907,
+        row(K5_ROW, "rungs_i8_4k", 907,
             "_rungs_kernel_i8_chunked", k5_counts["rungs_i8"], err_k5,
             "rungs.cu", err_k5),
         row("ladder_nv12", "ladder_nv12", 321, "_ladder_nv12_kernel",
@@ -3044,7 +3510,11 @@ def main() -> None:
             wire_counts["ladder_p010"], errs_wire["ladder_p010"]),
     ]
     for r in kernels:   # launches over the cli phase's card runs
-        r["launches_cli"] = cli_launches[r["name"].split()[0]]
+        r["launches_cli"] = cli_launches[r["name"]]
+        # the K3 and K5 rows: launches on their sources (wide_counts_of)
+        r["launches_perf"] = perf_launches.get(r["name"], 0)
+        r["launches_scale_out"] = scale_out_launches.get(r["name"], 0)
+    k1["launches_shm_ring"] = shm_launches["ladder_i8"]
     emit("elapsed", seconds=time.perf_counter() - t_start)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -240,9 +240,6 @@ def main(argv=None, device="cuda"):
         print("gmat: -af requires a transcoding -c:a (aac|ac3|mp2), "
               "not copy/absent", file=sys.stderr)
         return 2
-    if args.af:
-        from .metrans import _NO_AUDIO_FILTERS
-        raise NotImplementedError(_NO_AUDIO_FILTERS)
 
     from ..utils.compile_cache import enable as _enable_cache
     _enable_cache()   # .trtcache analog: reuse the kernel build across runs

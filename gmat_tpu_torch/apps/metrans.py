@@ -21,9 +21,9 @@ Config: XML with the reference's tags (InputFile, Session, FpsLimit,
 VideoEncParam, VideoFilterDesc, Resolutions/Resolution{Width,Height,
 VideoFilterDesc,VideoEncParamSuffix,OutputFormat,OutputFile}).  '#' in
 OutputFile is the session index, like the reference.  AudioFilterDesc
-comes with the audio lane in slice 6 and ProcDecode with the
-shared-memory ring in slice 7: until then each raises
-NotImplementedError.
+runs the session's audio through `av/audio_filters.AudioFilterStream`
+on the host; ProcDecode decodes in a worker process that ships frames
+through a shared-memory ring (`av/shm_ring.decode_stream_multiproc`).
 """
 from __future__ import annotations
 
@@ -102,20 +102,6 @@ class Options:
                     out_file=g("OutputFile", "out_#.mp4"),
                 ))
         return o
-
-
-_NO_AUDIO_FILTERS = ("AudioFilterDesc needs the audio filters "
-                     "(av/audio_filters), which the port gains in slice 6")
-
-
-def _unported(opts: Options) -> None:
-    """Raise for the options whose modules come in later slices."""
-    if opts.audio_filter_desc:
-        raise NotImplementedError(_NO_AUDIO_FILTERS)
-    if opts.proc_decode:
-        raise NotImplementedError(
-            "ProcDecode needs the shared-memory decode ring (av/shm_ring), "
-            "which the port gains in slice 7")
 
 
 class EncoderWorker(threading.Thread):
@@ -224,8 +210,6 @@ def transcode_audio(opts: Options):
     (shared across rungs).  Returns the AvMuxer audio tuple or None."""
     from ..av import toolkit as tk
 
-    if opts.audio_filter_desc:
-        raise NotImplementedError(_NO_AUDIO_FILTERS)
     dm = tk.Demuxer(opts.input_file)
     info = tk.AudioInfo(dm)
     if not info.present:
@@ -237,21 +221,39 @@ def transcode_audio(opts: Options):
     dec = enc = None
     try:
         dec = tk.AudioDecoder(info, sample_rate=rate, channels=ch)
-        enc = tk.AudioEncoder(opts.audio_codec, rate, ch,
+        # streamed filter chain: decoded blocks flow through push()/flush()
+        # and into the encoder as they arrive — no whole-track buffering
+        # (the output rate is known from the chain spec up front)
+        filt = None
+        out_rate = rate
+        if opts.audio_filter_desc:
+            from ..av.audio_filters import AudioFilterStream
+            filt = AudioFilterStream(opts.audio_filter_desc, rate)
+            out_rate = filt.out_rate
+        enc = tk.AudioEncoder(opts.audio_codec, out_rate, ch,
                               opts.audio_bitrate or 128000)
         pkts = []
+
+        def feed(chunk):
+            if filt is not None:
+                chunk = filt.push(chunk)
+            if chunk.size:
+                pkts.extend(enc.encode(chunk))
+
         for pkt in dm:
             if pkt.stream != 1:
                 continue
             for (chunk, _pts) in dec.decode(pkt.data, pkt.pts):
-                if chunk.size:
-                    pkts.extend(enc.encode(chunk))
+                feed(chunk)
         for (chunk, _pts) in dec.decode(None):
-            if chunk.size:
-                pkts.extend(enc.encode(chunk))
+            feed(chunk)
+        if filt is not None:
+            tail = filt.flush()
+            if tail.size:
+                pkts.extend(enc.encode(tail))
         pkts += enc.flush()
-        return (enc.codec_id, rate, enc.channels, enc.extradata(), pkts)
-    finally:   # native handles must not leak on a bad codec/stream
+        return (enc.codec_id, out_rate, enc.channels, enc.extradata(), pkts)
+    finally:   # native handles must not leak on a bad filter/codec/stream
         dm.close()
         if dec is not None:
             dec.close()
@@ -362,9 +364,13 @@ def run_session(session_idx: int, opts: Options, batch: int = 16,
     from ..utils.encparam import parse_enc_param
     from ..utils.stopwatch import FpsLimiter, FpsMeter, StopWatch
 
-    _unported(opts)
     watch = StopWatch()
-    src = decode_stream(opts.input_file, batch=batch, device=device)
+    if opts.proc_decode:
+        from ..av.shm_ring import decode_stream_multiproc
+        src = decode_stream_multiproc(opts.input_file, procs=1,
+                                      batch=batch, device=device)
+    else:
+        src = decode_stream(opts.input_file, batch=batch, device=device)
     src_fps = getattr(src, "fps", 0.0) or 30.0
     try:
         # pts timebase in seconds: container inputs use the stream
@@ -484,7 +490,7 @@ def main(argv=None):
     p.add_argument("-sessions", type=int, default=0)
     p.add_argument("-proc-decode", action="store_true",
                    help="decode in a worker process per session "
-                        "(XML tag <ProcDecode>1; not ported yet)")
+                        "(shm-ring fan-in; XML tag <ProcDecode>1)")
     p.add_argument("-frames", type=int, default=0)
     p.add_argument("-batch", type=int, default=16)
     p.add_argument("-stats", action="store_true")

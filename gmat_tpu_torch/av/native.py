@@ -1,5 +1,6 @@
-"""ctypes bindings to the native host runtime (csrc/gmat_av.cpp) and the
-JPEG entropy coder (csrc/gmat_jpeg.cpp).
+"""ctypes bindings to the native host runtime (csrc/gmat_av.cpp), the
+JPEG entropy coder (csrc/gmat_jpeg.cpp) and the audio biquad loop
+(csrc/gmat_dsp.cpp).
 
 A copy of `gmat_tpu/av/native.py` that builds into the port's own
 `gmat_tpu_torch/av/_lib/` (listed in .gitignore) from the repo's shared
@@ -8,8 +9,8 @@ compiled with g++ on first `load()` (seconds).  This mirrors how the
 reference ships `CFrameExtractor.so`/`CHeif.so` C shims consumed by ctypes
 (metrans/python/frame_extractor.py:22-52).  The demux/decode/encode/mux
 library links against libav* (FFmpeg); where those are missing,
-`load("gmat_av")` raises.  The JPEG coder needs nothing but the C++
-standard library.
+`load("gmat_av")` raises.  The JPEG coder and the biquad loop need
+nothing but the C++ standard library.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ _LIBS = {
     "gmat_av": (["gmat_av.cpp"], ["-lavformat", "-lavcodec", "-lavutil",
                                   "-lswscale", "-lswresample"]),
     "gmat_jpeg": (["gmat_jpeg.cpp"], []),
+    "gmat_dsp": (["gmat_dsp.cpp"], []),
 }
 
 
@@ -222,6 +224,16 @@ def _declare(name: str, lib: ctypes.CDLL):
                                               ctypes.POINTER(ctypes.c_ushort),
                                               ctypes.POINTER(ctypes.c_ushort),
                                               c_ll, ctypes.c_int]),
+        }
+    elif name == "gmat_dsp":
+        c_ps16 = ctypes.POINTER(ctypes.c_short)
+        c_pd = ctypes.POINTER(ctypes.c_double)
+        sigs = {
+            "gdsp_biquad_di_s16": (None, [
+                c_ps16, c_ps16, ctypes.c_int, c_pd,
+                ctypes.c_double, ctypes.c_double, ctypes.c_double,
+                ctypes.c_double, ctypes.c_double,
+                ctypes.c_double, ctypes.c_int, c_pll]),
         }
     elif name == "gmat_jpeg":
         c_pi16 = ctypes.POINTER(ctypes.c_int16)

@@ -26,7 +26,9 @@ Each kernel has a plain PyTorch version here (`_ladder_i8_plain`,
 ops on any device.  The wrappers take it only for CPU tensors, or when the
 caller passes `reference=True` (the counterpart of the JAX
 `interpret=True`); a CUDA tensor launches the kernel or raises.
-`LAUNCHES` counts the kernel launches per kernel name.
+`LAUNCHES` counts the kernel launches per kernel name, and
+`LAUNCHES_BY_SOURCE` the same launches per (name, source height, source
+width).
 
 Crop, gaussian smooth and flip fold into the four resample matrices on
 the host (numpy, once per geometry), so the kernels never see them.  The
@@ -39,6 +41,7 @@ patches with its planes, output and batch size.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from functools import lru_cache
 from typing import NamedTuple
@@ -53,6 +56,7 @@ from .smooth import smooth_matrix
 
 LAUNCHES = {"ladder_i8": 0, "ladder_bf16": 0, "ladder_nv12": 0,
             "ladder_nv12_i8": 0, "ladder_p010": 0}
+LAUNCHES_BY_SOURCE: collections.Counter = collections.Counter()
 
 _METHODS = ("bilinear", "nearest", "bicubic", "area", "lanczos3")
 
@@ -633,9 +637,10 @@ def _checked(lib) -> ctypes.CDLL:
     return lib
 
 
-def _call(fn, args, device: torch.device, name: str) -> None:
+def _call(fn, args, device: torch.device, name: str, source: tuple) -> None:
     """Launch C entry `fn` on `args` on the current stream of `device`;
-    raises if the launch failed, else counts it."""
+    raises if the launch failed, else counts it (and under its source's
+    (height, width))."""
     stream = torch.cuda.current_stream(device).cuda_stream
     if device.index == torch.cuda.current_device():
         err = fn(ctypes.byref(args), stream)
@@ -645,6 +650,7 @@ def _call(fn, args, device: torch.device, name: str) -> None:
     if err:
         raise RuntimeError(f"{name} launch failed: {_build.error_string(err)}")
     LAUNCHES[name] += 1
+    LAUNCHES_BY_SOURCE[(name, *source)] += 1
 
 
 def _launch(kind: str, y, u, v, geom: tuple, c: dict) -> torch.Tensor:
@@ -675,7 +681,7 @@ def _launch(kind: str, y, u, v, geom: tuple, c: dict) -> torch.Tensor:
     out = torch.empty((y.shape[0], 3, geom[4], geom[5]), dtype=torch.float32,
                       device=y.device)
     _call(fn, _patch(_LadderArgs.from_buffer_copy(template), y, u, v, out),
-          y.device, name)
+          y.device, name, geom[:2])
     return out
 
 
@@ -771,7 +777,7 @@ def _launch_wire(kind: str, yuv, geom: tuple, c: dict) -> torch.Tensor:
     out = torch.empty((yuv.shape[0], 3, geom[2], geom[3]),
                       dtype=torch.float32, device=yuv.device)
     _call(fn, _wire_patch(_WireArgs.from_buffer_copy(template), yuv, out),
-          yuv.device, name)
+          yuv.device, name, geom[:2])
     return out
 
 

@@ -22,10 +22,13 @@ counted).  Each kernel has a plain PyTorch version here
 tensor ops on any device.  The wrapper takes it only for CPU tensors, or
 when the caller passes `reference=True` (the counterpart of the JAX
 `interpret=True`); a CUDA tensor launches the kernel or raises.
-`LAUNCHES` counts the kernel launches per kernel name.
+`LAUNCHES` counts the kernel launches per kernel name, and
+`LAUNCHES_BY_SOURCE` the same launches per (name, source height, source
+width).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from functools import lru_cache
 
@@ -38,6 +41,7 @@ from .ladder import _band, _i8_quant_error_lsb, _row_col_operands, \
 from .resize import f32_matmul, resample_matrix
 
 LAUNCHES = {"rungs_i8": 0, "rungs_bf16": 0}
+LAUNCHES_BY_SOURCE: collections.Counter = collections.Counter()
 
 MAX_RUNGS = 8          # rungs per launch: RungsArgs holds 2 * MAX_RUNGS planes
 
@@ -387,6 +391,7 @@ def _launch(kind: str, y, u, v, geom: tuple) -> list:
                 raise RuntimeError(f"{name} launch failed: "
                                    f"{_build.error_string(err)}")
             LAUNCHES[name] += 1
+            LAUNCHES_BY_SOURCE[(name, *y.shape[1:])] += 1
     return outs
 
 

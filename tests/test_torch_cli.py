@@ -255,10 +255,23 @@ def test_cli_batches_stay_on_the_device(clip, monkeypatch):
     assert seen == [("cpu", "cpu")] * 2
 
 
-def test_cli_audio_filters_wait_for_the_audio_slice(clip, tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        port_cli.main(["-i", clip, "-af", "volume=0.5", "-c:a", "aac",
-                       "-o", str(tmp_path / "a.mp4")], device="cpu")
+def test_cli_audio_filters_wait_for_the_audio_slice(tmp_path):
+    """-af runs the port's audio filter chain (av/audio_filters): the
+    audio packets the port's CLI writes equal the JAX CLI's."""
+    from .test_audio import make_av_clip
+    src = str(tmp_path / "av.mp4")
+    make_av_clip(src)
+    packets = []
+    for tag, main in (("jax", _JAX_MAIN),
+                      ("port", lambda a: port_cli.main(a, device="cpu"))):
+        out = str(tmp_path / f"{tag}.mp4")
+        rc, _, err = _run(main, ["-i", src, "-af", "volume=0.5,atempo=1.25",
+                                 "-c:a", "aac", "-o", out, "-batch", "8"])
+        assert rc == 0, err
+        dm = tk.Demuxer(out)
+        packets.append([bytes(p.data) for p in dm if p.stream == 1])
+        dm.close()
+    assert packets[1] == packets[0] and len(packets[0]) > 10
 
 
 def test_cli_pad_batch_is_accepted_and_changes_nothing(clip, tmp_path):

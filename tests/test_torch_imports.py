@@ -50,7 +50,14 @@ def test_import_pulls_in_no_jax():
         "gmat_tpu_torch.utils.hostpool, gmat_tpu_torch.av.hevc, "
         "gmat_tpu_torch.av.heif, gmat_tpu_torch.utils.tracing, "
         "gmat_tpu_torch.utils.compile_cache, gmat_tpu_torch.apps.cli, "
-        "gmat_tpu_torch.apps.scan, gmat_tpu_torch.bindings\n"
+        "gmat_tpu_torch.apps.scan, gmat_tpu_torch.bindings, "
+        "gmat_tpu_torch.av.shm_ring, gmat_tpu_torch.parallel.mesh, "
+        "gmat_tpu_torch.parallel.pipeline, "
+        "gmat_tpu_torch.parallel.distributed, gmat_tpu_torch.apps.perf, "
+        "gmat_tpu_torch.av.audio_filters, gmat_tpu_torch.av.biquads, "
+        "gmat_tpu_torch.av.loudnorm, gmat_tpu_torch.av.ebur128, "
+        "gmat_tpu_torch.av.dynaudnorm, gmat_tpu_torch.av.amix, "
+        "gmat_tpu_torch.av.swr\n"
         "bad = [m for m in sys.modules if m.startswith('jax') "
         "or m == 'gmat_tpu' or m.startswith('gmat_tpu.')]\n"
         "print(bad)\n"
@@ -70,6 +77,30 @@ _FORBIDDEN = re.compile(
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax(path):
     assert not _FORBIDDEN.findall(path.read_text()), path
+
+
+def test_every_reference_module_has_a_counterpart():
+    """All 71 modules of the JAX package (not counting `__init__.py`)
+    have a counterpart at the same path in the port, except the Pallas
+    kernels, which `ops/ladder.py`, `ops/rungs.py` and `csrc/` carry."""
+    ref = {p.relative_to(ROOT / "gmat_tpu").as_posix()
+           for p in (ROOT / "gmat_tpu").rglob("*.py")
+           if p.name != "__init__.py"}
+    port = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert len(ref) == 71
+    assert ref - port == {"ops/pallas_kernels.py"}
+
+
+def test_port_builds_its_host_libraries_in_its_own_tree():
+    """Every host library of the port (libav* runtime, JPEG coder, the
+    audio biquad loop) builds from the shared csrc/ into the port's own
+    av/_lib, never into the JAX package's."""
+    from gmat_tpu_torch.av import native
+    assert set(native._LIBS) == {"gmat_av", "gmat_jpeg", "gmat_dsp"}
+    assert native._LIBDIR == PKG / "av" / "_lib"
+    assert native._CSRC == ROOT / "csrc"
+    assert native._build("gmat_dsp") == PKG / "av" / "_lib" / \
+        "libgmat_dsp.so"
 
 
 def _yuv(n=1, h=8, w=8):

@@ -21,6 +21,7 @@ from gmat_tpu_torch.av import ingest, rawvideo
 from gmat_tpu_torch.core.frame import FrameBatch
 from gmat_tpu_torch.ops import rungs
 from tests.test_extractor import make_clip
+from tests.torch_deadline import deadline
 
 W, H, NF = 160, 96, 21
 
@@ -406,15 +407,40 @@ def test_filtered_step_fused_branch_matches_jax_rungs(monkeypatch, rng):
     ("audio_filter_desc", "volume=0.5", 6),
     ("proc_decode", True, 7),
 ])
-def test_unported_options_raise(tmp_path, y4m, field, value, slice_no):
-    opts = _opts(metrans, y4m, tmp_path, "x", ((32, 16),))
+def test_unported_options_raise(monkeypatch, tmp_path, y4m, field, value,
+                                slice_no):
+    """AudioFilterDesc and ProcDecode run: a session with either hands
+    every encoder the frames the JAX session does, and the filtered audio
+    lane gives the JAX lane's packets (`slice_no` keeps the cases' ids)."""
+    seen_port = _capture(monkeypatch, metrans)
+    seen_jax = _capture(monkeypatch, jmetrans)
+    src, n_in = y4m, NF
+    if field == "proc_decode":     # the decode process reads containers
+        src, n_in = str(tmp_path / "clip.mp4"), 60
+        make_clip(src)
+    opts = _opts(metrans, src, tmp_path, "x", ((32, 16),))
+    jopts = _opts(jmetrans, src, tmp_path, "jx", ((32, 16),))
     setattr(opts, field, value)
-    with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-        metrans.run_session(0, opts, device="cpu")
+    setattr(jopts, field, value)
+    with deadline(120):     # ProcDecode spawns a decode process
+        res = metrans.run_session(0, opts, batch=8, device="cpu")
+        jres = jmetrans.run_session(0, jopts, batch=8)
+    assert res["frames_in"] == jres["frames_in"] == n_in
+    assert len(seen_port["enc0"]) == len(seen_jax["enc0"]) == n_in
+    for g, j in zip(seen_port["enc0"], seen_jax["enc0"]):
+        for a, b in zip(g, j):
+            np.testing.assert_array_equal(a, b)
     if field == "audio_filter_desc":
-        opts.audio_codec = "aac"
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            metrans.transcode_audio(opts)
+        from .test_audio import make_av_clip
+        src = str(tmp_path / "av.mp4")
+        make_av_clip(src)
+        for o in (opts, jopts):
+            o.input_file, o.audio_codec = src, "aac"
+        got = metrans.transcode_audio(opts)
+        want = jmetrans.transcode_audio(jopts)
+        assert got[:3] == want[:3] and got[3] == want[3]
+        assert [bytes(p.data) for p in got[4]] == \
+            [bytes(p.data) for p in want[4]]
 
 
 def test_sessions_need_placeholder(tmp_path, y4m):

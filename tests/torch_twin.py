@@ -13,7 +13,10 @@ itself, so its methods and attributes are held to each other in turn;
 so does a list, dict, set or dataclass read from an object's attribute
 (or from such a container), so that the test's changes to it reach both
 objects.  Both calls must raise alike:
-the same exception class name and message.
+the same exception class name and message.  Attributes named in
+`distinct` differ between the two objects by nature (a shared-memory
+segment's name, a process id): reading one gives a twin of both values
+unchecked, so that handing it back to a call gives each side its own.
 """
 from __future__ import annotations
 
@@ -113,9 +116,10 @@ class Twin:
     """The pair (JAX object, port object) seen as one object."""
 
     def __init__(self, ref, port, rtol: float = 0.0, port_kw=None,
-                 name: str = ""):
+                 name: str = "", distinct=()):
         object.__setattr__(self, "_pair", (ref, port))
         object.__setattr__(self, "_rtol", rtol)
+        object.__setattr__(self, "_distinct", tuple(distinct))
         # extra keywords for the port's callables that accept them, e.g.
         # device="cpu" for entry points that default to the card
         object.__setattr__(self, "_port_kw", dict(port_kw or {}))
@@ -130,10 +134,14 @@ class Twin:
             if not (live and (isinstance(b, (list, dict, set))
                               or dataclasses.is_dataclass(b))):
                 return b
-        return Twin(a, b, self._rtol, self._port_kw, name)
+        return Twin(a, b, self._rtol, self._port_kw, name, self._distinct)
 
     def __getattr__(self, attr):
         ref, port = self._pair
+        if attr in self._distinct:
+            return Twin(getattr(ref, attr), getattr(port, attr), self._rtol,
+                        self._port_kw, f"{self._name}.{attr}",
+                        self._distinct)
         return self._wrap(getattr(ref, attr), getattr(port, attr),
                           f"{self._name}.{attr}", live=True)
 
