@@ -18,8 +18,9 @@ telecined file through inverse telecine as the common graph, and its
 first batch through a DnCNN as the common graph and through the JPEG
 still codec; the whole file through the gmat CLI as a user runs it; the
 main path sharded over device meshes and across processes, a
-shared-memory ring from a producer process, the gmat-perf harness and
-the audio filter chain -- and holds every kernel against its plain
+shared-memory ring from a producer process, the gmat-perf harness, the
+audio filter chain, the scaling-shape tool, the stills example and both
+trainers at full width -- and holds every kernel against its plain
 PyTorch version on the card:
 
   device           card name, compute capability, power limit, kernel build
@@ -152,6 +153,26 @@ PyTorch version on the card:
                    PCM: atempo, volume, afade, aecho, loudnorm, dynaudnorm
                    (loudnorm between two aresample stages where
                    libswresample is missing), samples/s and a checksum
+  scaling          tools/scaling_shape (`python -m
+                   gmat_tpu_torch.tools.scaling_shape`) on the card:
+                   ShardedPipeline of the separate-op ladder, 16 x 360p ->
+                   224^2, over 1, 2, 4 and 8 shards of cuda:0; per-shard
+                   flops and bytes 1/n within 1.35x, wall times
+  examples         examples/stills_and_torch on the card: the JPEG part
+                   and the tensor part (one ladder_i8 launch) against
+                   their CPU runs; HEIF and extract_to_torch where
+                   libavcodec exists
+  train            both trainers (tools/train_sr, tools/train_denoise)
+                   through their `main` at full width under PyTorch's
+                   default backend flags: ESPCN x2 hidden 64, batch 32,
+                   96^2 HR, 16,000 steps; DnCNN 3 channels, batch 32, 64^2,
+                   2,000 steps; 512 patches each: each past its own gate,
+                   its checkpoint through InferFilter on the card against
+                   the CPU; the first 20 steps from the same init and
+                   batches on the card and the CPU (step-1 gradients
+                   within 1e-4 of each tensor's largest magnitude, losses
+                   within rtol 1e-4); ms per step (CUDA events), steps/s,
+                   held-out PSNR, wall s
   timing           CUDA-event medians: kernel, plain version, library call,
                    separate-op path; for the ladder, wire and rung kernels
                    also the wrapper's device and host time and the ptxas
@@ -2949,6 +2970,289 @@ def audio_phase():
          phase_s=time.perf_counter() - t_phase)
 
 
+# The train phase: both trainers' `main` at full width, cut in steps and
+# patches only (SR 24,000 -> 16,000 steps, DnCNN 16,000 -> 2,000; 4,096 ->
+# 512 patches, which the host generates in about 10 s and 4 s).  The SR
+# gate needs the steps: on an H100 its held-out gain over bicubic was
+# -1.74 dB after 3,000 steps, -0.49 after 6,000 (-0.46 on 2,048 patches)
+# and +0.29 after 12,000; DnCNN gained +6.36 dB after 2,000
+TRAIN_RUNS = (
+    ("sr", "train_sr", ("--scale", "2", "--hidden", "64", "--batch", "32",
+                        "--hr", "96", "--patches", "512", "--steps",
+                        "16000")),
+    ("dncnn", "train_denoise", ("--channels", "3", "--batch", "32",
+                                "--size", "64", "--patches", "512",
+                                "--steps", "2000")),
+)
+TRAIN_PAIR_STEPS = 20         # card against CPU: the first steps' losses
+TRAIN_PAIR_PATCHES = 64
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-4         # of each gradient tensor's largest magnitude
+TRAIN_FILTER_RTOL = 1e-4      # a written checkpoint, card against CPU
+SCALING_SLACK = 1.35          # tools/scaling_shape.py's near-linear factor
+
+
+@contextlib.contextmanager
+def torch_default_flags():
+    """PyTorch's default backend flags inside the block (what a user's run
+    sees: cuDNN may use TF32, matmuls may not), this script's after it."""
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cuda.matmul.allow_tf32 = saved[1]
+        torch.backends.cudnn.allow_tf32 = saved[2]
+
+
+def all_launches() -> dict:
+    """Every kernel counter of ops/ladder and ops/rungs since they were
+    last zeroed."""
+    from gmat_tpu_torch.ops import ladder, rungs
+    return {**ladder.LAUNCHES, **rungs.LAUNCHES}
+
+
+def zero_all_counts() -> None:
+    from gmat_tpu_torch.ops import ladder, rungs
+    zero_counts(ladder)
+    zero_counts(rungs)
+
+
+def param_leaves(params) -> list:
+    if isinstance(params, dict) and "layers" in params:
+        return [t for layer in params["layers"] for t in layer.values()]
+    return list(params.values())
+
+
+def train_cases():
+    """Per trainer: the CPU init of its run, its loss, and TRAIN_PAIR_STEPS
+    host batches drawn as the trainer draws them (the DnCNN noise from a
+    seeded CPU generator, so that both devices see the same batches)."""
+    from gmat_tpu_torch import models
+    from gmat_tpu_torch.models import denoise, sr
+    from gmat_tpu_torch.tools import train_denoise, train_sr
+    _, idxs = next(train_sr.index_chunks(SEED, TRAIN_PAIR_PATCHES, 32,
+                                         TRAIN_PAIR_STEPS))
+    idxs = torch.as_tensor(idxs[:TRAIN_PAIR_STEPS])
+    hrs = torch.as_tensor(train_sr.make_dataset(TRAIN_PAIR_PATCHES, 96,
+                                                SEED))
+    lrs = torch.as_tensor(train_sr.area_down(hrs.numpy(), 2))
+    clean = torch.as_tensor(train_sr.make_dataset(TRAIN_PAIR_PATCHES, 64,
+                                                  SEED))
+    gen = torch.Generator().manual_seed(SEED)
+    return {
+        "sr": (lambda: sr.init_params(models.generator(SEED), scale=2,
+                                      hidden=64, device="cpu"),
+               sr.loss_fn, [(lrs[i], hrs[i]) for i in idxs]),
+        "dncnn": (lambda: denoise.init_params(models.generator(SEED),
+                                              channels=3, device="cpu"),
+                  train_denoise.loss_fn,
+                  [(train_denoise.add_noise(clean[i], gen), clean[i])
+                   for i in idxs]),
+    }
+
+
+def trainable(make_params, device, steps: int):
+    """The CPU init on `device`, taking gradients, with the trainers'
+    optimizer and schedule over `steps`."""
+    from gmat_tpu_torch import models
+    from gmat_tpu_torch.tools import train_sr
+    params = models.to_device(make_params(), device)
+    leaves = param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    return (params, leaves, *train_sr.make_optimizer(leaves, 1e-3, steps))
+
+
+def train_pair(make_params, loss_fn, batches, device):
+    """The trainer's step on `device` from the CPU init over `batches`:
+    the step-1 gradients and every step's loss, on the host."""
+    from gmat_tpu_torch.tools import train_sr
+    params, leaves, opt, sched = trainable(make_params, device, len(batches))
+    losses, grads = [], None
+    for batch in batches:
+        losses.append(train_sr.train_step(
+            opt, sched, loss_fn, params, *(b.to(device) for b in batch)))
+        if grads is None:
+            grads = [t.grad.detach().cpu().clone() for t in leaves]
+    return torch.stack(losses).cpu(), grads
+
+
+def step_ms(make_params, loss_fn, batches, noise: bool):
+    """CUDA-event ms of the trainer's loop body on the card at full width:
+    a batch gathered from a device dataset, the DnCNN noise drawn on the
+    card, the step (optimizer and schedule included)."""
+    from gmat_tpu_torch.tools import train_denoise, train_sr
+    params, _, opt, sched = trainable(make_params, "cuda", 10_000)
+    xs, ys = (torch.cat([b[k] for b in batches]).cuda() for k in (0, 1))
+    idx = torch.randperm(len(xs), generator=torch.Generator().manual_seed(
+        SEED)).view(-1, 32).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def body(i):
+        rows = idx[i % len(idx)]
+        y = ys[rows]
+        x = train_denoise.add_noise(y, gen) if noise else xs[rows]
+        train_sr.train_step(opt, sched, loss_fn, params, x, y)
+    return event_ms(body, calls=50, reps=5, warm=10)
+
+
+def filter_check(model, path, frames):
+    """The written checkpoint through InferFilter(weights=path), fp32, on
+    the card and on the CPU: output shape, finite, within
+    TRAIN_FILTER_RTOL."""
+    from gmat_tpu_torch.core.frame import FrameBatch
+    from gmat_tpu_torch.filters.infer import InferFilter
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        filt = InferFilter(model=model, weights=path, precision="fp32")
+        fb = FrameBatch.from_numpy(frames, "yuv420p", frames["y"].shape[2],
+                                   frames["y"].shape[1], device=dev)
+        outs[dev] = filt(fb).planes["rgb"]
+    got, want = outs["cuda"].cpu(), outs["cpu"]
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{model} checkpoint output {tuple(got.shape)}")
+    err = rel_excess(got, want, TRAIN_FILTER_RTOL, 1e-5)
+    check(err <= 1, f"{model} checkpoint card vs CPU: {err} of the bound")
+    return list(got.shape)
+
+
+def train_phase(tmp):
+    """Both trainers' `main` on the card at full width (TRAIN_RUNS) under
+    PyTorch's default flags: each past its own gate, its checkpoint written
+    to `tmp` and run through InferFilter on the card against the CPU; the
+    first TRAIN_PAIR_STEPS steps of each from the same init and batches on
+    the card and on the CPU (step-1 gradients within TRAIN_GRAD_TOL of
+    each tensor's largest magnitude, losses within TRAIN_LOSS_RTOL); ms
+    per step from CUDA events, steps/s, held-out PSNR, wall s.  No
+    ladder or rung kernel runs."""
+    from gmat_tpu_torch.tools import train_denoise, train_sr
+    tools = {"train_sr": train_sr, "train_denoise": train_denoise}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    frames = {"y": rng.integers(16, 236, (2, 270, 480)).astype(np.uint8),
+              "u": rng.integers(16, 240, (2, 135, 240)).astype(np.uint8),
+              "v": rng.integers(16, 240, (2, 135, 240)).astype(np.uint8)}
+    runs = {}
+    with torch_default_flags():
+        check(torch.backends.cudnn.allow_tf32, "default flags not set")
+        zero_all_counts()
+        for name, tool, argv in TRAIN_RUNS:
+            out_path = os.path.join(tmp, f"{name}.npz")
+            log = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                rec = tools[tool].main([*argv, "--out", out_path])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(isinstance(rec, dict) and os.path.exists(out_path),
+                  f"{tool} wrote no checkpoint")
+            runs[name] = {**rec, "wall_s": wall,
+                          "steps_per_s_loop": rec["steps"] / rec["train_s"],
+                          "log": log.getvalue().splitlines()}
+        launches = {k: v for k, v in all_launches().items() if v}
+        check(not launches, f"the trainers launched {launches}")
+        runs["sr"]["filter_output"] = filter_check(
+            "sr2x", runs["sr"]["out"], frames)
+        runs["dncnn"]["filter_output"] = filter_check(
+            "denoise", runs["dncnn"]["out"], frames)
+        for name, (make, loss_fn, batches) in train_cases().items():
+            t0 = time.perf_counter()
+            card_losses, card_grads = train_pair(make, loss_fn, batches,
+                                                 "cuda")
+            cpu_losses, cpu_grads = train_pair(make, loss_fn, batches, "cpu")
+            pair_s = time.perf_counter() - t0
+            grad_err = max(float((g - w).abs().max() / w.abs().max())
+                           for g, w in zip(card_grads, cpu_grads))
+            loss_err = float(((card_losses - cpu_losses).abs()
+                              / cpu_losses.abs()).max())
+            check(grad_err <= TRAIN_GRAD_TOL,
+                  f"{name} step-1 gradients card vs CPU: {grad_err}")
+            check(loss_err <= TRAIN_LOSS_RTOL,
+                  f"{name} losses card vs CPU: {loss_err}")
+            ms, ms_runs, host_ms = step_ms(make, loss_fn, batches,
+                                           noise=name == "dncnn")
+            runs[name].update(grad_rel_err_step1=grad_err,
+                              loss_rel_err_20=loss_err, pair_s=pair_s,
+                              ms_per_step=ms, runs_ms=ms_runs,
+                              host_ms_per_step=host_ms,
+                              steps_per_s=1e3 / ms)
+    check(torch.backends.cudnn.allow_tf32 is False,
+          "the script's flags were not restored")
+    emit("train", runs=runs, phase_s=time.perf_counter() - t_phase)
+    return runs
+
+
+def scaling_phase(tmp):
+    """tools/scaling_shape on the card: ShardedPipeline of the separate-op
+    ladder over 1, 2, 4 and 8 shards of cuda:0; per-shard flops and bytes
+    1/n of one shard's within SCALING_SLACK, the wall times; no kernel
+    launch (use_kernel="never")."""
+    from gmat_tpu_torch.tools import scaling_shape
+    t_phase = time.perf_counter()
+    zero_all_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        art = scaling_shape.main(["--device", "cuda", "--out",
+                                  os.path.join(tmp, "SCALING_torch.json")])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in all_launches().items() if v}
+    check(not launches, f"scaling launched {launches}")
+    for r in art["rows"]:
+        n = r["devices"]
+        for key in ("flops_ratio_vs_1dev", "bytes_ratio_vs_1dev"):
+            check(1 / (SCALING_SLACK * n) <= r[key] <= SCALING_SLACK / n,
+                  f"scaling {n} shards: {key} {r[key]}")
+    emit("scaling", device=art["device"], rows=art["rows"],
+         phase_s=time.perf_counter() - t_phase)
+
+
+def examples_phase(tmp):
+    """examples/stills_and_torch on the card: the JPEG part (8 x 360p,
+    DCT on the card) and the tensor part (preprocess_nchw, one ladder_i8
+    launch), each against its CPU run: the same JPEG sizes and error, the
+    tensor within LSB_GATE; the HEIF and extract_to_torch parts where
+    libavcodec exists.  Returns the launches."""
+    from gmat_tpu_torch.core.frame import from_numpy_yuv420
+    from gmat_tpu_torch.examples import stills_and_torch as st
+    t_phase = time.perf_counter()
+    y, u, v = st.planes()
+    batch = [np.stack([p] * 8) for p in (y, u, v)]
+    fb = from_numpy_yuv420(*batch, device="cuda")
+    zero_all_counts()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        jpeg = st.jpeg_part(fb, y)
+        t = st.tensor_part(fb)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in all_launches().items() if v}
+    check(launches == {"ladder_i8": 1}, f"examples launches {launches}")
+    fb_cpu = from_numpy_yuv420(*batch, device="cpu")
+    with contextlib.redirect_stdout(io.StringIO()):
+        jpeg_cpu = st.jpeg_part(fb_cpu, y)
+        t_cpu = st.tensor_part(fb_cpu)
+    check(jpeg == jpeg_cpu and jpeg["mean_err"] < 1.0,
+          f"examples JPEG {jpeg} vs CPU {jpeg_cpu}")
+    check(t.is_cuda and tuple(t.shape) == (8, 3, 224, 224)
+          and bool(torch.isfinite(t).all()), "examples tensor")
+    err = lsb(t.cpu(), t_cpu)
+    check(err <= LSB_GATE, f"examples tensor vs CPU: {err} LSB")
+    rec = {"jpeg": jpeg, "tensor": list(t.shape), "tensor_lsb_vs_cpu": err,
+           "launches": launches, "log": log.getvalue().splitlines()}
+    if av_precondition("examples_av"):
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            rec["heif"] = st.heif_part(y, u, v)
+            rec["extract"] = st.extract_part(tmp, "cuda")
+        rec["log"] += log.getvalue().splitlines()
+    emit("examples", **rec, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3317,6 +3621,9 @@ def main() -> None:
         shm_launches = shm_ring_phase(tmp)
         perf_launches = perf_phase(src, tmp)
         audio_phase()
+        scaling_phase(tmp)
+        examples_launches = examples_phase(tmp)
+        train_phase(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3515,6 +3822,8 @@ def main() -> None:
         r["launches_perf"] = perf_launches.get(r["name"], 0)
         r["launches_scale_out"] = scale_out_launches.get(r["name"], 0)
     k1["launches_shm_ring"] = shm_launches["ladder_i8"]
+    # the examples' tensor part; the train and scaling phases launch none
+    k1["launches_examples"] = examples_launches["ladder_i8"]
     emit("elapsed", seconds=time.perf_counter() - t_start)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -26,9 +26,10 @@ from .. import models
 from ..core.frame import FrameBatch
 from ..ops import csc, resize
 
-# the JAX package's shipped checkpoints, read where they are (data files)
-WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "gmat_tpu", "models", "weights")
+# the port's shipped checkpoints (byte-for-byte copies of the JAX
+# package's), where the port's trainers write theirs
+WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "models", "weights")
 
 
 def _bundled_weights(model: str, channels: int, hidden: int) -> str:

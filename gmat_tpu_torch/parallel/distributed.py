@@ -332,6 +332,7 @@ def train_workload(args) -> dict:
     summed over every row of every process and scaled to the global-batch
     mean, then SGD(lr=1e-3) — the step the JAX package takes on the whole
     global batch."""
+    from ..models import exact_f32
     from ..ops import fused
 
     n_global = process_count() * args.devices_per_host
@@ -364,8 +365,10 @@ def train_workload(args) -> dict:
         x = fused.preprocess_nchw(shard, 32, 32)
         pred = pmesh.sr_forward_tp(cols, x)
         local_sum = local_sum + torch.mean((pred - tgt) ** 2).to(first)
-    # the global loss is the mean over rows of equal size
-    (local_sum / n_rows).backward()
+    # the global loss is the mean over rows of equal size; the backward
+    # convolutions under the layers' flags (TF32 off), as the trainers run
+    with exact_f32():
+        (local_sum / n_rows).backward()
     # every replica of a piece gets the sum of all rows' gradients
     for c in range(n_model):
         for k in placed[0][c]:

@@ -57,8 +57,14 @@ def test_import_pulls_in_no_jax():
         "gmat_tpu_torch.av.audio_filters, gmat_tpu_torch.av.biquads, "
         "gmat_tpu_torch.av.loudnorm, gmat_tpu_torch.av.ebur128, "
         "gmat_tpu_torch.av.dynaudnorm, gmat_tpu_torch.av.amix, "
-        "gmat_tpu_torch.av.swr\n"
+        "gmat_tpu_torch.av.swr, gmat_tpu_torch.tools.train_sr, "
+        "gmat_tpu_torch.tools.train_denoise, "
+        "gmat_tpu_torch.tools.scaling_shape, "
+        "gmat_tpu_torch.examples.quickstart, "
+        "gmat_tpu_torch.examples.stills_and_torch, "
+        "gmat_tpu_torch.examples.avtoolkit_demos\n"
         "bad = [m for m in sys.modules if m.startswith('jax') "
+        "or m == 'optax' or m.startswith('optax.') "
         "or m == 'gmat_tpu' or m.startswith('gmat_tpu.')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -69,7 +75,7 @@ def test_import_pulls_in_no_jax():
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax\w*|gmat_tpu)(?:\.|\s|$)", re.M)
+    r"^\s*(?:import|from)\s+(?:jax\w*|optax|gmat_tpu)(?:\.|\s|$)", re.M)
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) +
@@ -89,6 +95,15 @@ def test_every_reference_module_has_a_counterpart():
     port = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     assert len(ref) == 71
     assert ref - port == {"ops/pallas_kernels.py"}
+
+
+@pytest.mark.parametrize("folder", ["tools", "examples"])
+def test_every_tool_and_example_has_a_counterpart(folder):
+    """Each script of the repo's tools/ and examples/ has a module of the
+    same name in the port's package of that name."""
+    ref = {p.name for p in (ROOT / folder).glob("*.py")}
+    port = {p.name for p in (PKG / folder).glob("*.py")}
+    assert ref and ref <= port, ref - port
 
 
 def test_port_builds_its_host_libraries_in_its_own_tree():
